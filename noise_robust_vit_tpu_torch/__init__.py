@@ -1,0 +1,13 @@
+"""PyTorch + CUDA port of ``noise_robust_vit_tpu`` for NVIDIA Hopper.
+
+The JAX package stays the reference; this package imports ``torch`` and
+never JAX. Its attention runs on hand-written CUDA kernels
+(``ops/cuda/csrc``) for CUDA tensors and on their plain PyTorch versions for
+CPU tensors.
+"""
+
+from .convert import convert_params
+from .models import SimpleViT, create_model
+from .ops import packed_attention
+
+__all__ = ["SimpleViT", "convert_params", "create_model", "packed_attention"]

@@ -1,0 +1,66 @@
+"""Architecture registry: name → constructor (counterpart of
+``noise_robust_vit_tpu/models/factory.py``; the port's entries so far are
+``simple_vit`` and ``simple_vit_b16``). Every entry accepts
+``(num_classes, image_size, robust, dtype, device)``; ``create_model`` draws
+the initial weights from a ``torch.Generator`` seeded with ``seed``."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .layers import init_params
+from .simple_vit import SimpleViT
+
+_REGISTRY: dict[str, Callable] = {}
+
+__all__ = ["create_model", "register_model"]
+
+
+def register_model(name: str):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def create_model(name: str, *, num_classes: int, image_size: int = 224,
+                 robust: bool = False, dtype: torch.dtype = torch.float32,
+                 device: torch.device | str | None = None, seed: int = 0,
+                 **kwargs) -> torch.nn.Module:
+    if name not in _REGISTRY:
+        raise ValueError(f"unknown architecture {name!r}; known: {sorted(_REGISTRY)}")
+    model = _REGISTRY[name](num_classes=num_classes, image_size=image_size,
+                            robust=robust, dtype=dtype, device=device, **kwargs)
+    generator = torch.Generator(device=torch.device(device or "cpu"))
+    generator.manual_seed(seed)
+    init_params(model, generator)
+    return model
+
+
+@register_model("simple_vit")
+def _simple_vit(num_classes, image_size, robust, dtype, device=None, **kw):
+    """The CPU-sized baseline config (depth-6/dim-512/patch-4 @32px), scaled
+    by image size (JAX factory.py:292)."""
+    return SimpleViT(
+        image_size=image_size,
+        patch_size=kw.pop("patch_size", 4 if image_size <= 64 else 16),
+        num_classes=num_classes,
+        dim=kw.pop("dim", 512),
+        depth=kw.pop("depth", 6),
+        heads=kw.pop("heads", 8),
+        mlp_dim=kw.pop("mlp_dim", 1024),
+        robust=robust, dtype=dtype, device=device, **kw,
+    )
+
+
+@register_model("simple_vit_b16")
+def _simple_vit_b16(num_classes, image_size, robust, dtype, device=None, **kw):
+    """SimpleViT-B/16, the flagship throughput config (JAX factory.py:310)."""
+    return SimpleViT(
+        image_size=image_size, patch_size=16, num_classes=num_classes,
+        dim=768, depth=12, heads=12, mlp_dim=3072,
+        robust=robust, dtype=dtype, device=device, **kw,
+    )

@@ -1,0 +1,177 @@
+"""Shared building blocks (counterpart of ``noise_robust_vit_tpu/models/layers.py``).
+
+The bf16 semantics follow the JAX package's flax modules: parameters stay
+float32, every module has a compute ``dtype``, and parameters are cast to it
+at use, as flax's ``dtype=`` does. Module and parameter names follow the
+flax tree (``layers_0_attn/to_qkv/kernel`` ↔ ``layers_0_attn.to_qkv.weight``)
+so that ``convert.convert_params`` maps one onto the other by name.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .. import ops
+
+__all__ = ["Attention", "Dense", "FeedForward", "LayerNorm", "PatchEmbed",
+           "Transformer", "init_params"]
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` whose input, weight and bias are cast to ``dtype`` at use
+    (flax ``nn.Dense(dtype=...)``)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm computed in float32 and cast to ``dtype`` (flax
+    ``nn.LayerNorm(dtype=...)`` normalizes in at least float32)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__(dim, eps=eps, device=device)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(self.compute_dtype)
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, generator: torch.Generator) -> None:
+    """Flax's default initializers, drawn from ``generator``: Dense kernels
+    lecun-normal (truncated at ±2σ), biases zero, LayerNorm scale one."""
+    for m in module.modules():
+        if isinstance(m, Dense):
+            std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+
+
+class FeedForward(nn.Module):
+    """LayerNorm → Dense → act → Dense (ref simple_vit.py:34-45)."""
+
+    def __init__(self, dim: int, hidden_dim: int, act: Callable = ops.gelu,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.norm = LayerNorm(dim, eps=1e-5, dtype=dtype, device=device)
+        self.fc1 = Dense(dim, hidden_dim, dtype=dtype, device=device)
+        self.fc2 = Dense(hidden_dim, dim, dtype=dtype, device=device)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(self.act(self.fc1(self.norm(x))))
+
+
+class Attention(nn.Module):
+    """Pre-norm multi-head self-attention with optional Sinkhorn ("robust")
+    normalization (ref simple_vit.py:48-76; robust branch :56-59). Shapes in
+    the kernels' gate take the packed path (``ops.packed_attention``); the
+    rest split q/k/v and take ``ops.dot_product_attention``."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
+                 robust: bool = False, qkv_bias: bool = False,
+                 out_bias: bool = False, sinkhorn_iters: int = 3,
+                 final_row_norm: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.robust = robust
+        self.sinkhorn_iters, self.final_row_norm = sinkhorn_iters, final_row_norm
+        self.norm = LayerNorm(dim, eps=1e-5, dtype=dtype, device=device)
+        self.to_qkv = Dense(dim, inner * 3, bias=qkv_bias, dtype=dtype, device=device)
+        self.to_out = Dense(inner, dim, bias=out_bias, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        x = self.norm(x)
+        b, n = x.shape[0], x.shape[1]
+        qkv = self.to_qkv(x)
+        kw = dict(scale=self.dim_head ** -0.5, robust=self.robust,
+                  sinkhorn_iters=self.sinkhorn_iters,
+                  final_row_norm=self.final_row_norm)
+        if mask is None and ops.packed_dispatch(n, self.dim_head, self.heads, b,
+                                                self.sinkhorn_iters):
+            # packed path: reads the to_qkv layout in place, emits to_out's
+            out = ops.packed_attention(qkv, self.heads, self.dim_head, **kw)
+            return self.to_out(out)
+        q, k, v = (t.reshape(b, n, self.heads, self.dim_head).transpose(1, 2)
+                   for t in qkv.chunk(3, dim=-1))
+        out = ops.dot_product_attention(q, k, v, mask=mask, **kw)
+        out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
+        return self.to_out(out)
+
+
+class Transformer(nn.Module):
+    """Pre-norm residual stack of (Attention, FeedForward) pairs
+    (ref simple_vit.py:79-97). Layers are named ``layers_{i}_attn`` and
+    ``layers_{i}_ff`` as in the flax tree."""
+
+    def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
+                 mlp_dim: int, robust: bool = False, final_norm: bool = False,
+                 qkv_bias: bool = False, out_bias: bool = False,
+                 ff_act: Callable = ops.gelu,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"layers_{i}_attn", Attention(
+                dim, heads=heads, dim_head=dim_head, robust=robust,
+                qkv_bias=qkv_bias, out_bias=out_bias, dtype=dtype, device=device))
+            self.add_module(f"layers_{i}_ff", FeedForward(
+                dim, mlp_dim, act=ff_act, dtype=dtype, device=device))
+        self.norm = (LayerNorm(dim, eps=1e-5, dtype=dtype, device=device)
+                     if final_norm else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.depth):
+            x = getattr(self, f"layers_{i}_attn")(x) + x
+            x = getattr(self, f"layers_{i}_ff")(x) + x
+        if self.norm is not None:
+            x = self.norm(x)
+        return x
+
+
+class PatchEmbed(nn.Module):
+    """Patchify + linear embedding over NHWC images (ref simple_vit.py:126-131:
+    ``Rearrange('b c (h p1) (w p2) -> b h w (p1 p2 c)')`` + Linear); the
+    flattened patch's feature order is (p1, p2, c)."""
+
+    def __init__(self, dim: int, patch_size: tuple[int, int], channels: int = 3,
+                 bias: bool = True, flatten: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.patch_size = patch_size
+        self.flatten = flatten
+        ph, pw = patch_size
+        self.proj = Dense(ph * pw * channels, dim, bias=bias, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        ph, pw = self.patch_size
+        gh, gw = h // ph, w // pw
+        x = x.reshape(b, gh, ph, gw, pw, c).permute(0, 1, 3, 2, 4, 5)
+        x = self.proj(x.reshape(b, gh, gw, ph * pw * c))
+        if self.flatten:
+            x = x.reshape(b, gh * gw, -1)
+        return x

@@ -1,0 +1,23 @@
+"""Compute ops of the port (counterpart of ``noise_robust_vit_tpu/ops``)."""
+
+from .activations import gelu
+from .attention import dot_product_attention, packed_attention, packed_dispatch
+from .posemb import posemb_sincos_2d
+from .sinkhorn import (
+    robust_softmax,
+    sinkhorn_attention,
+    sinkhorn_normalize,
+    sinkhorn_scalings,
+)
+
+__all__ = [
+    "dot_product_attention",
+    "gelu",
+    "packed_attention",
+    "packed_dispatch",
+    "posemb_sincos_2d",
+    "robust_softmax",
+    "sinkhorn_attention",
+    "sinkhorn_normalize",
+    "sinkhorn_scalings",
+]

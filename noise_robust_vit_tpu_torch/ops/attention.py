@@ -1,0 +1,68 @@
+"""Multi-head attention ops (counterpart of
+``noise_robust_vit_tpu/ops/attention.py``): the plain vector-form path over
+``[B, H, N, D]`` tensors, and the dispatch to the packed-qkv kernels.
+
+Dispatch rule: a packed ``[B, N, 3·H·D]`` tensor whose shape passes the
+kernels' gate goes to ``packed_attention``, which launches the CUDA kernel
+for a CUDA tensor and runs its plain PyTorch version for a CPU tensor. A
+shape outside the gate takes ``dot_product_attention``. The choice is made
+on shape before the call, never after a kernel error.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .cuda.packed_attention import PackedAttention, packed_attention_supported
+from .sinkhorn import sinkhorn_scalings
+
+__all__ = ["dot_product_attention", "packed_attention", "packed_dispatch"]
+
+# Whether the packed kernels serve a self-attention shape (vanilla and robust
+# both take them): the kernels' own shape gate.
+packed_dispatch = packed_attention_supported
+
+
+def packed_attention(qkv: torch.Tensor, heads: int, dim_head: int, *,
+                     scale: float | None = None, robust: bool = False,
+                     sinkhorn_iters: int = 3, final_row_norm: bool = True,
+                     ) -> torch.Tensor:
+    """Fused attention over the packed ``[B, N, 3·H·D]`` qkv projection
+    (q|k|v chunk order, ref simple_vit.py:66-68). Returns ``[B, N, H·D]``."""
+    if scale is None:
+        scale = dim_head ** -0.5
+    return PackedAttention.apply(qkv, int(heads), int(dim_head), float(scale),
+                                 bool(robust), int(sinkhorn_iters),
+                                 bool(final_row_norm))
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          scale: float | None = None,
+                          bias: torch.Tensor | None = None,
+                          mask: torch.Tensor | None = None,
+                          robust: bool = False, sinkhorn_iters: int = 3,
+                          final_row_norm: bool = True) -> torch.Tensor:
+    """``softmax(q·kᵀ·scale [+bias][mask])`` (optionally Sinkhorn-renormalized)
+    ``· v`` over ``[..., N, D]``; returns ``v``'s dtype. Logits and the
+    weights are float32, as the JAX package's ``preferred_element_type``.
+    ``mask`` is boolean (True = attend)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
+    attn = torch.softmax(logits, dim=-1)
+    if mask is not None:
+        attn = torch.where(mask, attn, torch.zeros_like(attn))
+    if robust:
+        # out = a ⊙ (A @ (b ⊙ v)); with no hard mask the rows are an exact
+        # softmax, so the first row normalization is skipped
+        a, b = sinkhorn_scalings(attn, num_iters=sinkhorn_iters,
+                                 final_row_norm=final_row_norm,
+                                 assume_row_stochastic=mask is None)
+        v = v * b[..., :, None].to(v.dtype)
+        out = torch.matmul(attn.to(v.dtype).float(), v.float())
+        return (out * a[..., :, None]).to(v.dtype)
+    return torch.matmul(attn.to(v.dtype).float(), v.float()).to(v.dtype)

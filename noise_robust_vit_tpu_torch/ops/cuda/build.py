@@ -1,0 +1,103 @@
+"""Build the hand-written CUDA kernels into one shared library with a plain C
+interface, and load it with ctypes.
+
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) at first use,
+into ``build/kernels/`` at the root of the checkout. The library's name
+carries a hash of the sources and flags, so an edited source is rebuilt and
+a stale library is never loaded. The build writes to a temporary name and
+renames it into place, so concurrent processes never load a half-written
+file. Nothing is built or imported when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["build", "build_dir", "error_string", "load_library", "sources"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: (name, argtypes); each returns cudaGetLastError()
+_ENTRIES = {
+    "nrv_packed_attention_fwd": (
+        # qkv, out, vecs, scratch, dtype, B, N, H, D, scale, robust, iters,
+        # final_row, n_slots, stream
+        [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _VP]),
+    "nrv_packed_attention_bwd": (
+        # qkv, dout, vecs, dqkv, scratch, dtype, B, N, H, D, scale, robust,
+        # iters, final_row, n_slots, stream
+        [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _VP]),
+    "nrv_cuda_error_string": ([_I]),
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def build_dir() -> Path:
+    """``build/kernels/`` at the root of the checkout holding the package."""
+    return Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.iterdir()):
+        if path.suffix in (".cu", ".cuh"):
+            h.update(path.name.encode())
+            h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the library unless a build of these sources exists; returns
+    its path."""
+    out = build_dir() / f"libnrv_kernels_{_digest()}.so"
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, and declare every entry's
+    argument and result types."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_char_p if name == "nrv_cuda_error_string" else ctypes.c_int
+    return lib
+
+
+def error_string(err: int) -> str:
+    return load_library().nrv_cuda_error_string(err).decode()

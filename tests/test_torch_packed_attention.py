@@ -1,0 +1,221 @@
+"""The port's packed-qkv attention against the JAX package's Pallas kernel.
+
+On the CPU the port runs its plain PyTorch versions (forward and the
+hand-derived backward); the JAX side runs ``packed_attention`` in interpret
+mode, as ``tests/test_block_attention.py`` does. Both get the same numpy
+inputs. Tolerances are the JAX suite's own, in float32: forward atol 2e-6 /
+rtol 2e-5, gradients atol 5e-6 / rtol 5e-5.
+
+The ``gpu`` cases compare the CUDA kernels with the plain versions on the
+card and skip where there is none. JAX is imported only by the tests that
+compare with it, so the file also runs where JAX is absent:
+
+    python -m pytest --noconftest tests/test_torch_packed_attention.py -m gpu
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from noise_robust_vit_tpu_torch.ops import packed_attention
+from noise_robust_vit_tpu_torch.ops.attention import packed_dispatch
+from noise_robust_vit_tpu_torch.ops.cuda import packed_attention as pa
+
+torch.set_num_threads(1)
+
+# (robust, sinkhorn_iters, final_row_norm): vanilla plus the three schedules
+MODES = [(False, 3, True), (True, 3, True), (True, 4, False), (True, 4, True)]
+SHAPES = [(2, 17, 2, 64), (3, 40, 1, 128), (2, 197, 4, 64)]
+
+
+def _inputs(seed, b, n, h, d):
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((b, n, 3 * h * d)).astype(np.float32)
+    tang = rng.standard_normal((b, n, h * d)).astype(np.float32)
+    return qkv, tang
+
+
+@pytest.fixture
+def jx():
+    """The JAX reference: jax, jax.numpy and the Pallas packed kernel module."""
+    jax = pytest.importorskip("jax")
+    from noise_robust_vit_tpu.ops.pallas import block_attention
+
+    return types.SimpleNamespace(jax=jax, jnp=jax.numpy, ba=block_attention)
+
+
+def _jax_fwd_grad(jx, qkv, tang, h, d, robust, iters, final_row):
+    def f(x):
+        return jx.ba.packed_attention(x, h, d, d**-0.5, robust, iters, final_row, True)
+
+    out, vjp = jx.jax.vjp(f, jx.jnp.asarray(qkv))
+    (grad,) = vjp(jx.jnp.asarray(tang))
+    return np.asarray(out), np.asarray(grad)
+
+
+def _torch_fwd_grad(qkv, tang, h, d, robust, iters, final_row):
+    x = torch.from_numpy(qkv).requires_grad_(True)
+    out = packed_attention(x, h, d, scale=d**-0.5, robust=robust,
+                           sinkhorn_iters=iters, final_row_norm=final_row)
+    out.backward(torch.from_numpy(tang))
+    return out.detach().numpy(), x.grad.numpy()
+
+
+@pytest.mark.parametrize("mode", MODES, ids=lambda m: f"robust{int(m[0])}-{m[1]}-{int(m[2])}")
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_matches_jax_kernel(jx, mode, shape):
+    robust, iters, final_row = mode
+    b, n, h, d = shape
+    qkv, tang = _inputs(0, b, n, h, d)
+    out_j, grad_j = _jax_fwd_grad(jx, qkv, tang, h, d, robust, iters, final_row)
+    out_t, grad_t = _torch_fwd_grad(qkv, tang, h, d, robust, iters, final_row)
+    np.testing.assert_allclose(out_t, out_j, atol=2e-6, rtol=2e-5)
+    np.testing.assert_allclose(grad_t, grad_j, atol=5e-6, rtol=5e-5)
+
+
+@pytest.mark.parametrize("mode", MODES, ids=lambda m: f"robust{int(m[0])}-{m[1]}-{int(m[2])}")
+def test_residual_rows_match_jax_kernel(jx, mode):
+    """The stored scaling vectors and log-normalizer are the JAX kernel's
+    residual rows (its buffer pads rows to 8 and columns to 128)."""
+    robust, iters, final_row = mode
+    b, n, h, d = 2, 17, 2, 64
+    qkv, _ = _inputs(1, b, n, h, d)
+    _, vecs_j = jx.ba._packed_fwd_impl(jx.jnp.asarray(qkv), h, d, d**-0.5, robust,
+                                       iters, final_row, True, want_vecs=True)
+    r = jx.ba._num_vecs(iters, final_row, robust)
+    _, vecs_t = pa.packed_attention_fwd_plain(torch.from_numpy(qkv), h, d, d**-0.5,
+                                              robust, iters, final_row)
+    assert vecs_t.shape == (b, h, r, n)
+    np.testing.assert_allclose(vecs_t.numpy(), np.asarray(vecs_j)[:, :, :r, :n],
+                               atol=2e-6, rtol=2e-5)
+
+
+def test_uniform_v_rows_sum_to_one():
+    """Doubly-stochasticity through the packed path: uniform v ⇒ output rows
+    equal v when the rows are normalized last (final row norm)."""
+    b, n, h, d = 1, 12, 1, 128
+    qkv, _ = _inputs(3, b, n, h, d)
+    qkv[..., 2 * h * d:] = 1.0
+    out = packed_attention(torch.from_numpy(qkv), h, d, robust=True,
+                           sinkhorn_iters=3, final_row_norm=True)
+    np.testing.assert_allclose(out.numpy(), 1.0, atol=1e-4)
+
+
+def test_cpu_tensor_takes_plain_version():
+    """A CPU tensor runs the plain version: no kernel is built or launched."""
+    pa.launches.reset()
+    qkv, tang = _inputs(4, 1, 9, 2, 64)
+    _torch_fwd_grad(qkv, tang, 2, 64, True, 3, True)
+    assert (pa.launches.fwd, pa.launches.bwd) == (0, 0)
+
+
+@pytest.mark.parametrize("n,d,ok", [(196, 64, True), (197, 64, True),
+                                    (17, 128, True), (17, 48, False),
+                                    (pa.MAX_N + 1, 64, False)])
+def test_gate(n, d, ok):
+    assert packed_dispatch(n, d, 12, 256) is ok
+
+
+def test_cuda_wrapper_refuses_cpu_tensor():
+    qkv = torch.zeros(1, 4, 3 * 64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pa.packed_attention_fwd_cuda(qkv, 1, 64, 0.125)
+
+
+# --------------------------------------------------------------------------
+# on the card: kernel against plain version
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _kernel_vs_plain(qkv, tang, h, d, robust, iters, final_row):
+    scale = d**-0.5
+    out_k, vecs_k = pa.packed_attention_fwd_cuda(qkv, h, d, scale, robust, iters, final_row)
+    dq_k = pa.packed_attention_bwd_cuda(qkv, tang, vecs_k, h, d, scale, robust,
+                                        iters, final_row)
+    out_p, vecs_p = pa.packed_attention_fwd_plain(qkv, h, d, scale, robust, iters, final_row)
+    dq_p = pa.packed_attention_bwd_plain(qkv, tang, vecs_p, h, d, scale, robust,
+                                         iters, final_row)
+    torch.cuda.synchronize()
+    return (out_k, vecs_k, dq_k), (out_p, vecs_p, dq_p)
+
+
+def _assert_kernel_matches(got, want):
+    """float32: atol 1e-4 / rtol 1e-3 — the sums run in another order than
+    the plain version's, and the reverse chain amplifies the difference.
+    bfloat16 in and out, float32 inside: outputs agree to a bf16 rounding of
+    values of order one (atol 2e-2)."""
+    if got[0].dtype == torch.float32:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-3)
+        return
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(got[2].float(), want[2].float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES, ids=lambda m: f"robust{int(m[0])}-{m[1]}-{int(m[2])}")
+@pytest.mark.parametrize("shape", [(4, 196, 12, 64), (2, 197, 4, 64),
+                                   (2, 40, 2, 128), (2, 65, 3, 32),
+                                   (1, 300, 2, 64), (1, pa.MAX_N, 1, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kernel_matches_plain_f32(cuda, mode, shape):
+    robust, iters, final_row = mode
+    b, n, h, d = shape
+    qkv, tang = (torch.from_numpy(x).to(cuda) for x in _inputs(5, b, n, h, d))
+    _assert_kernel_matches(*_kernel_vs_plain(qkv, tang, h, d, robust, iters, final_row))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES, ids=lambda m: f"robust{int(m[0])}-{m[1]}-{int(m[2])}")
+@pytest.mark.parametrize("shape", [(4, 196, 12, 64), (2, 197, 4, 64),
+                                   (2, 40, 2, 128), (2, 65, 3, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_kernel_matches_plain_bf16(cuda, mode, shape):
+    robust, iters, final_row = mode
+    b, n, h, d = shape
+    qkv, tang = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _inputs(6, b, n, h, d))
+    _assert_kernel_matches(*_kernel_vs_plain(qkv, tang, h, d, robust, iters, final_row))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("mode", MODES, ids=lambda m: f"robust{int(m[0])}-{m[1]}-{int(m[2])}")
+def test_kernel_walks_several_heads_per_block(cuda, mode, dtype):
+    """More heads than the grid has blocks: every block takes at least two
+    (image, head) pairs in turn and reuses its scratch slot and its shared
+    vectors, which must carry nothing from one head to the next."""
+    robust, iters, final_row = mode
+    n, h, d = 196, 12, 64
+    slots = pa._n_slots(cuda, 1 << 30)
+    b = -(-2 * slots // h) + 1
+    assert b * h >= 2 * slots and pa._n_slots(cuda, b * h) == slots
+    qkv, tang = (torch.from_numpy(x).to(cuda, dtype) for x in _inputs(8, b, n, h, d))
+    _assert_kernel_matches(*_kernel_vs_plain(qkv, tang, h, d, robust, iters, final_row))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("robust", [False, True])
+def test_autograd_on_card_launches_kernels(cuda, robust):
+    """``packed_attention`` on a CUDA tensor goes through both kernels, once
+    each, and its output and gradient agree with the CPU path."""
+    b, n, h, d = 2, 197, 3, 64
+    qkv, tang = _inputs(7, b, n, h, d)
+    want = _torch_fwd_grad(qkv, tang, h, d, robust, 3, True)
+    x = torch.from_numpy(qkv).to(cuda).requires_grad_(True)
+    pa.launches.reset()
+    out = packed_attention(x, h, d, robust=robust)
+    out.backward(torch.from_numpy(tang).to(cuda))
+    torch.cuda.synchronize()
+    assert (pa.launches.fwd, pa.launches.bwd) == (1, 1)
+    np.testing.assert_allclose(out.detach().cpu().numpy(), want[0], atol=1e-4, rtol=1e-3)
+    np.testing.assert_allclose(x.grad.cpu().numpy(), want[1], atol=1e-4, rtol=1e-3)
