@@ -1,31 +1,40 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU: builds the hand-written
 kernels, holds them against their plain PyTorch versions, takes a few
-SimpleViT-B/16 @224 bf16 train steps through them, and times kernels and
-steps.
+SimpleViT-B/16 and Swin-T @224 bf16 train steps through them, and times
+kernels and steps.
 
-    python3 chip_smoke.py     # all phases; ~2 minutes on an H100
+    python3 chip_smoke.py     # all phases; ~5 minutes on an H100
 
 Phases, one line each (or a few):
   1. device   the card's name and power limit, as nvidia-smi reports them;
               exits non-zero without a CUDA device
   2. build    nvcc build of noise_robust_vit_tpu_torch/ops/cuda/csrc, seconds
-  3. kernels  forward and backward kernels against the plain versions at
-              [8, 196|197, 2304] (H=12, D=64), vanilla and three Sinkhorn
-              schedules, and at the main path's [256, 196, 2304], vanilla and
-              robust (3, final), where each block of the grid takes about 12
-              heads in turn; in float32 (atol 1e-4, rtol 1e-3: the sums run
-              in another order and the reverse chain amplifies it) and
-              bfloat16 (atol 2e-2: one bf16 rounding of values of order one)
-  4. slice    a small SimpleViT, kernels against the plain path; then 5 AdamW
-              steps (lr 1e-4, wd 0.05) of SimpleViT-B/16 bf16 on one fixed
-              batch of 64, robust and vanilla: finite, falling loss, and 12
-              launches per step of each kernel
-  5. timing   kernels against plain versions at [256, 196, 2304], and the
-              train step at batch 256 (median of 3 windows, AdamW lr 1e-3):
-              img/s and MFU against 989 TFLOP/s dense bf16
-  6. profile  device time by op and kernel over one robust train step at
-              batch 256 (torch.profiler), the top 30 rows
+  3. kernels  packed kernels against their plain versions at [8, 196|197,
+              2304] (H=12, D=64), vanilla and three Sinkhorn schedules, and at
+              the main path's [256, 196, 2304], vanilla and robust (3, final);
+              biased kernels against theirs at the four Swin-T stage shapes of
+              a batch of 128 with their real window counts, swin_v2_t's N=64,
+              LeViT's [256, 4, 196, 16] (DV 32) and Twins' local
+              [8192, 8, 49, 64] with no bias, out, residual rows, dq, dk, dv
+              and dbias. float32: atol 1e-4, rtol 1e-3 (the sums run in
+              another order and the reverse chain amplifies it), dbias atol
+              1e-3 (a sum over up to 128 windows' gradients); bfloat16:
+              atol 2e-2 (one bf16 rounding of values of order one)
+  4. slice    small SimpleViT and Swin v1/v2 models, kernels against the
+              plain path; 5 AdamW steps (lr 1e-4, wd 0.05) of SimpleViT-B/16
+              bf16 on one fixed batch of 64, robust and vanilla, and the same
+              for Swin-T: finite, falling loss, and the launches per step of
+              each kernel (12 packed, SimpleViT; 12 biased robust, 0 vanilla,
+              Swin-T); one robust fwd+bwd of swin_v2_t bf16 at batch 32 (N=64)
+  5. timing   kernels against plain versions at [256, 196, 2304] (packed)
+              and [8192, 3, 49, 32], nW=64 (biased), with
+              scaled_dot_product_attention as the vanilla yardstick; the train
+              step of SimpleViT-B/16 at batch 256 and of Swin-T at batch 128
+              (median of 3 windows): img/s, MFU against 989 TFLOP/s dense bf16
+              and peak memory
+  6. profile  device time by op and kernel over one robust train step of
+              each model (torch.profiler), the top rows
 Then the card line again, a {"kernels": [...]} JSON line, and as the last
 line {"ok": true, "device": {...}}. Any failed check raises, and the script
 exits non-zero without printing the last line.
@@ -42,10 +51,18 @@ import time
 
 import numpy as np
 
-PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 on the tensor cores,
+# float32 outside them, device memory
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
 MODES = [(False, 3, True), (True, 3, True), (True, 4, False), (True, 4, True)]
-FWD_SRC = "noise_robust_vit_tpu_torch/ops/cuda/csrc/packed_attention_fwd.cu"
-BWD_SRC = "noise_robust_vit_tpu_torch/ops/cuda/csrc/packed_attention_bwd.cu"
+CSRC = "noise_robust_vit_tpu_torch/ops/cuda/csrc/"
+PALLAS = "noise_robust_vit_tpu/ops/pallas/"
+# Swin-T @224, batch 128: the biased calls' q/k/v shapes and window counts
+# (tools/dispatch_audit.jsonl)
+SWIN_T_STAGES = [((8192, 3, 49, 32), 64), ((2048, 6, 49, 32), 16),
+                 ((512, 12, 49, 32), 4), ((128, 24, 49, 32), 1)]
 
 
 def log(msg: str) -> None:
@@ -65,6 +82,60 @@ def vit_train_flops_per_image(image=224, patch=16, dim=768, depth=12, heads=12,
     )
     fwd = n * 2 * (patch * patch * 3) * dim + depth * per_block + 2 * dim * classes
     return 3 * fwd
+
+
+def swin_fwd_macs_per_image(image=224, patch=4, embed=96, depths=(2, 2, 6, 2),
+                            window=7, mlp_ratio=4, classes=1000):
+    """Analytic forward multiply-adds of one image through Swin (the unit of
+    torchvision's published 4.49 "GFLOPS" for Swin-T): the patch
+    convolution, per block qkv, q·kᵀ and attn·v over the padded windows,
+    proj and the MLP, the patch mergings and the head."""
+    h = image // patch
+    macs = h * h * patch * patch * 3 * embed
+    for i, depth in enumerate(depths):
+        c = embed * 2 ** i
+        tokens, padded = h * h, (math.ceil(h / window) * window) ** 2
+        per_block = (padded * c * 3 * c + 2 * padded * window * window * c
+                     + padded * c * c + 2 * tokens * c * mlp_ratio * c)
+        macs += depth * per_block
+        if i < len(depths) - 1:
+            h = math.ceil(h / 2)
+            macs += h * h * 4 * c * 2 * c
+    return macs + embed * 2 ** (len(depths) - 1) * classes
+
+
+def chain_passes(robust, iters, final_row):
+    """N² passes of the Sinkhorn chain over each matrix: (forward, reverse,
+    rank-1 terms of the reverse)."""
+    if not robust:
+        return 0, 0, 0
+    return iters - 1 + final_row + iters, final_row + 2 * iters - 1, final_row + 2 * iters - 1
+
+
+def bound_ms(nbytes, mma_flops, f32_ops):
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over their peak rates (products on the
+    bf16 tensor cores, the elementwise and reduction passes in float32)."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = mma_flops / PEAK_BF16 + f32_ops / PEAK_F32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_work(items, n, d, dv, in_bytes, out_bytes, robust, iters, final_row,
+                   bias_add):
+    """(fwd, bwd) bounds of one attention call over `items` (image, head)
+    matrices: the bytes each direction must move once, its products (fwd
+    q·kᵀ and attn·v; bwd the q·kᵀ recompute, dV, dA, dQ, dK, and o/a when
+    robust) and its float32 passes over the N² entries (scale and bias,
+    softmax, the chain, the softmax vjp, the rank-1 terms)."""
+    fp, bp, nt = chain_passes(robust, iters, final_row)
+    nn = items * n * n
+    fwd = bound_ms(in_bytes[0] + out_bytes[0], items * 2 * n * n * (d + dv),
+                   nn * (4 + bias_add + 2 * fp))
+    bwd_products = 3 * d + (3 if robust else 2) * dv
+    bwd = bound_ms(in_bytes[1] + out_bytes[1], items * 2 * n * n * bwd_products,
+                   nn * (3 + bias_add + 2 * bp + 4 + 2 * nt))
+    return fwd, bwd
 
 
 def card_line() -> str:
@@ -140,6 +211,168 @@ def phase_kernels(pa, torch, dev):
     return worst
 
 
+def phase_biased_kernels(ba, torch, dev):
+    """Biased kernels against their plain versions, every mode, float32 and
+    bfloat16: at the four Swin-T stage shapes of a batch of 128 with their
+    real window counts, swin_v2_t's N=64 (stages 0 and 3 at batch 32),
+    LeViT's [256, 4, 196, 16] with DV=32 and one per-head bias, and Twins'
+    local [8192, 8, 49, 64] with no bias. Returns the largest bfloat16
+    errors at the Swin-T stage shapes (fwd out; bwd dq, dk, dv, dbias)."""
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    rng = np.random.default_rng(10)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(f"swin_t stage {i}", (*shape, shape[-1]), nw, False)
+             for i, (shape, nw) in enumerate(SWIN_T_STAGES)]
+    cases += [("swin_v2_t stage 0", (1568, 3, 64, 32, 32), 49, False),
+              ("swin_v2_t stage 3", (32, 24, 64, 32, 32), 1, False),
+              ("levit", (256, 4, 196, 16, 32), 1, False),
+              ("twins local", (8192, 8, 49, 64, 64), 1, True)]
+    names = ["out", "vecs", "dq", "dk", "dv", "dbias"]
+    for label, (bw, h, n, d, dv), nw, no_bias in cases:
+        q32, k32 = (torch.from_numpy(rng.standard_normal((bw, h, n, d), dtype=np.float32)).to(dev)
+                    for _ in range(2))
+        v32, g32 = (torch.from_numpy(rng.standard_normal((bw, h, n, dv), dtype=np.float32)).to(dev)
+                    for _ in range(2))
+        bias = torch.from_numpy(rng.standard_normal((nw, h, n, n), dtype=np.float32)).to(dev)
+        for dtype in (f32, bf16):
+            q, k, v, g = (t.to(dtype) for t in (q32, k32, v32, g32))
+            for robust, iters, final_row in MODES:
+                args = (d ** -0.5, robust, iters, final_row, nw, no_bias)
+                out_k, vecs_k = ba.biased_attention_fwd_cuda(q, k, v, bias, *args)
+                got = (out_k, vecs_k, *ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs_k, *args))
+                torch.cuda.synchronize()
+                out_p, vecs_p = ba.biased_attention_fwd_plain(q, k, v, bias, *args)
+                want = (out_p, vecs_p, *ba.biased_attention_bwd_plain(q, k, v, bias, g, vecs_p, *args))
+                torch.cuda.synchronize()
+                errs = {nm: (a.float() - b.float()).abs().max().item()
+                        for nm, a, b in zip(names, got, want) if a is not None}
+                log(f"kernels: biased {label} {str(dtype).split('.')[1]} [{bw},{h},{n},{d}] "
+                    f"DV={dv} nW={nw} no_bias={int(no_bias)} robust={int(robust)} "
+                    f"iters={iters} final_row={int(final_row)} max_abs_err "
+                    + " ".join(f"{nm}={e:.3g}" for nm, e in errs.items()))
+                for nm, a, b in zip(names, got, want):
+                    if a is None:
+                        if b is not None:
+                            raise RuntimeError(f"{label}: kernel gave no {nm}")
+                        continue
+                    if dtype == f32:
+                        atol = 1e-3 if nm == "dbias" else 1e-4
+                        torch.testing.assert_close(a, b, atol=atol, rtol=1e-3, msg=nm)
+                    elif nm == "vecs":
+                        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3, msg=nm)
+                    else:
+                        rtol = 0 if nm == "out" else 2e-2
+                        torch.testing.assert_close(a.float(), b.float(), atol=2e-2,
+                                                   rtol=rtol, msg=nm)
+                if dtype == bf16 and label.startswith("swin_t"):
+                    worst["fwd"] = max(worst["fwd"], errs["out"])
+                    worst["bwd"] = max(worst["bwd"], *(errs[nm] for nm in names[2:] if nm in errs))
+                del got, want, out_k, vecs_k, out_p, vecs_p
+        del q32, k32, v32, g32, bias, q, k, v, g
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_small_swin(ba, torch, dev):
+    """The Swin wiring through the biased kernels: small robust float32 Swin
+    v1 and v2 models on the card (kernels) against the same weights on the
+    CPU (plain versions). Window 7 over a 56×56 image (v1) and 8 over 64×64
+    (v2): a shifted and an unshifted block at N=49 or 64, D=16. No window is
+    padded: a padded token's q is exactly zero, and v2's q / max(‖q‖, 1e-12)
+    multiplies its gradient by 1e12, which no tolerance can compare."""
+    from noise_robust_vit_tpu_torch import SwinTransformer
+
+    rng = np.random.default_rng(11)
+    y = torch.from_numpy(rng.integers(0, 10, size=2))
+    for version, window in ((1, 7), (2, 8)):
+        size = 8 * window
+        x = torch.from_numpy(rng.standard_normal((2, size, size, 3), dtype=np.float32))
+        kw = dict(patch_size=(4, 4), embed_dim=32, depths=(2, 2), num_heads=(2, 4),
+                  window_size=(window, window), num_classes=10, stochastic_depth_prob=0.0,
+                  robust=True, version=version)
+        cpu = SwinTransformer(device="cpu", **kw)
+        gpu = SwinTransformer(device=dev, **kw)
+        gpu.load_state_dict(cpu.state_dict())
+        outs = []
+        for model, xx, yy in ((cpu, x, y), (gpu, x.to(dev), y.to(dev))):
+            ba.launches.reset()
+            logits = model(xx)
+            torch.nn.functional.cross_entropy(logits.float(), yy).backward()
+            outs.append((logits.detach().cpu(),
+                         {k: p.grad.cpu() for k, p in model.named_parameters()},
+                         (ba.launches.fwd, ba.launches.bwd)))
+        if outs[0][2] != (0, 0) or outs[1][2] != (4, 4):
+            raise RuntimeError(f"small swin v{version}: launches cpu {outs[0][2]}, "
+                               f"card {outs[1][2]}, expected (0, 0) and (4, 4)")
+        torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-3)
+        for k, g in outs[0][1].items():
+            torch.testing.assert_close(outs[1][1][k], g, atol=1e-4, rtol=1e-3, msg=k)
+        err = max((outs[1][1][k] - g).abs().max().item() for k, g in outs[0][1].items())
+        log(f"slice: small Swin v{version} f32 robust card vs cpu: logits and grads "
+            f"agree (max grad err {err:.3g}), launches fwd/bwd 4/4")
+
+
+def sdpa_ms(torch, q, k, v, mask, g):
+    """The vanilla yardstick: one scaled_dot_product_attention call forward,
+    and its backward (dq, dk, dv) through autograd."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask), 10)
+    qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = sdpa(qq, kk, vv, attn_mask=mask)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), g, retain_graph=True), 10)
+    return fwd, bwd
+
+
+def phase_biased_times(ba, torch, dev, shape=SWIN_T_STAGES[0]):
+    """Biased kernels at Swin-T stage 0, bf16, robust (3, final) and vanilla,
+    beside the plain versions; for vanilla also SDPA with the bias as its
+    attn_mask (materialized as [BW, H, N, N] bf16). Each row's bound comes
+    from these inputs."""
+    (bw, h, n, d), nw = shape
+    rng = np.random.default_rng(13)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((bw, h, n, d), dtype=np.float32)).to(dev, torch.bfloat16)
+                  for _ in range(4))
+    bias = torch.from_numpy(rng.standard_normal((nw, h, n, n), dtype=np.float32)).to(dev)
+    times = {}
+    for robust in (True, False):
+        args = (d ** -0.5, robust, 3, True, nw, False)
+        _, vecs = ba.biased_attention_fwd_cuda(q, k, v, bias, *args)
+        t = {
+            "fwd": cuda_ms(lambda: ba.biased_attention_fwd_cuda(q, k, v, bias, *args), 20),
+            "fwd_plain": cuda_ms(lambda: ba.biased_attention_fwd_plain(q, k, v, bias, *args), 5),
+            "bwd": cuda_ms(lambda: ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs, *args), 20),
+            "bwd_plain": cuda_ms(lambda: ba.biased_attention_bwd_plain(q, k, v, bias, g, vecs, *args), 5),
+        }
+        t["fwd_lib"] = t["bwd_lib"] = None
+        if not robust:
+            mask = bias.to(torch.bfloat16).unsqueeze(0).expand(bw // nw, nw, h, n, n).reshape(bw, h, n, n)
+            t["fwd_lib"], t["bwd_lib"] = sdpa_ms(torch, q, k, v, mask, g)
+            del mask
+        el, r = 2, vecs.shape[2]
+        qkv_b, out_b = 3 * q.numel() * el, v.numel() * el
+        vec_b, bias_b = vecs.numel() * 4, bias.numel() * 4
+        (t["fwd_bound"], t["fwd_by"]), (t["bwd_bound"], t["bwd_by"]) = attention_work(
+            bw * h, n, d, d, (qkv_b + bias_b, qkv_b + out_b + vec_b + bias_b),
+            (out_b + vec_b, qkv_b + bias_b), robust, 3, True, 1)
+        times[robust] = t
+        lib = "" if robust else (f"; sdpa fwd {t['fwd_lib']:.4f} bwd {t['bwd_lib']:.4f}")
+        log(f"timing: biased attention bf16 [{bw},{h},{n},{d}] nW={nw} robust={int(robust)} "
+            f"(3, final) ms: fwd {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, bound "
+            f"{t['fwd_bound']:.4f} {t['fwd_by']}) bwd {t['bwd']:.4f} (plain "
+            f"{t['bwd_plain']:.4f}, bound {t['bwd_bound']:.4f} {t['bwd_by']}){lib}")
+        del vecs
+    # what BiasedAttention's contiguous copies of the q, k, v views that
+    # Swin's qkv projection gives cost at this shape
+    qkv = torch.cat([q, k, v], dim=-1).transpose(1, 2).reshape(bw, n, 3 * h * d)
+    views = qkv.reshape(bw, n, 3, h, d).permute(2, 0, 3, 1, 4).unbind(0)
+    copies = cuda_ms(lambda: [t.contiguous() for t in views], 20)
+    log(f"timing: contiguous copies of q, k, v from the qkv projection [{bw},{n},{3 * h * d}] "
+        f"bf16: {copies:.4f} ms")
+    del q, k, v, g, bias, qkv, views
+    torch.cuda.empty_cache()
+    return times
+
+
 def phase_small_model(torch, dev):
     """The model wiring through the kernels: a small float32 SimpleViT on the
     card (kernels) against the same weights on the CPU (plain versions)."""
@@ -147,7 +380,7 @@ def phase_small_model(torch, dev):
 
     kw = dict(num_classes=10, image_size=64, robust=True, dim=128, depth=2,
               heads=2, mlp_dim=256, dim_head=64)
-    cpu = create_model("simple_vit", **kw)
+    cpu = create_model("simple_vit", device="cpu", **kw)
     gpu = create_model("simple_vit", device=dev, **kw)
     gpu.load_state_dict(cpu.state_dict())
     rng = np.random.default_rng(1)
@@ -166,35 +399,63 @@ def phase_small_model(torch, dev):
         f"(max grad err {err:.3g})")
 
 
-def phase_train(pa, torch, dev, steps=5, batch=64):
+def phase_train(counts, torch, dev, name, per_step, steps=5, batch=64):
+    """`steps` AdamW steps (lr 1e-4, wd 0.05) of `name` bf16 at full width on
+    one fixed batch, robust then vanilla: finite, falling loss, and
+    `per_step[robust]` launches per step of each kernel that `counts`
+    counts. Returns the launches of both runs together."""
     from noise_robust_vit_tpu_torch import create_model
     from noise_robust_vit_tpu_torch.train import create_train_state
 
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal((batch, 224, 224, 3), dtype=np.float32)).to(dev, torch.bfloat16)
     y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
-    counts = {"fwd": 0, "bwd": 0}
+    total = {"fwd": 0, "bwd": 0}
     for robust in (True, False):
-        model = create_model("simple_vit_b16", num_classes=1000, image_size=224,
-                             robust=robust, dtype=torch.bfloat16, device=dev, seed=0)
+        model = create_model(name, num_classes=1000, image_size=224, robust=robust,
+                             dtype=torch.bfloat16, device=dev, seed=0)
         state = create_train_state(model, lr=1e-4, weight_decay=0.05)
-        pa.launches.reset()
-        losses = [float(state.train_step(x, y)) for _ in range(steps)]
-        torch.cuda.synchronize()
-        fwd, bwd = pa.launches.fwd, pa.launches.bwd
-        log(f"slice: simple_vit_b16 bf16 robust={int(robust)} batch={batch} "
-            f"losses={[round(v, 5) for v in losses]} launches fwd={fwd} bwd={bwd}")
+        losses, launches = [], []
+        for _ in range(steps):
+            counts.reset()
+            losses.append(float(state.train_step(x, y)))
+            launches.append((counts.fwd, counts.bwd))
+        log(f"slice: {name} bf16 robust={int(robust)} batch={batch} "
+            f"losses={[round(v, 5) for v in losses]} launches (fwd, bwd) per step={launches}")
         if not all(math.isfinite(v) for v in losses):
             raise RuntimeError(f"non-finite loss: {losses}")
         if not losses[-1] < losses[0]:
             raise RuntimeError(f"loss did not fall: {losses}")
-        if fwd != 12 * steps or bwd != 12 * steps:
-            raise RuntimeError(f"expected {12 * steps} launches of each kernel, "
-                               f"got fwd={fwd} bwd={bwd}")
-        counts["fwd"] += fwd
-        counts["bwd"] += bwd
+        want = per_step[robust]
+        if any(step != (want, want) for step in launches):
+            raise RuntimeError(f"expected {want} launches of each kernel per step, got {launches}")
+        total["fwd"] += sum(f for f, _ in launches)
+        total["bwd"] += sum(b for _, b in launches)
         del model, state
-    return counts
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_swin_v2(ba, torch, dev, batch=32):
+    """One robust fwd+bwd of swin_v2_t bf16, whose 12 attentions run the
+    biased kernels at N=64."""
+    from noise_robust_vit_tpu_torch import create_model
+
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((batch, 224, 224, 3), dtype=np.float32)).to(dev, torch.bfloat16)
+    y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
+    model = create_model("swin_v2_t", num_classes=1000, robust=True,
+                         dtype=torch.bfloat16, device=dev, seed=0)
+    ba.launches.reset()
+    loss = torch.nn.functional.cross_entropy(model(x).float(), y)
+    loss.backward()
+    torch.cuda.synchronize()
+    log(f"slice: swin_v2_t bf16 robust batch={batch} fwd+bwd loss={float(loss):.5f} "
+        f"biased launches fwd={ba.launches.fwd} bwd={ba.launches.bwd} (N=64)")
+    if not math.isfinite(float(loss)) or (ba.launches.fwd, ba.launches.bwd) != (12, 12):
+        raise RuntimeError("swin_v2_t: non-finite loss or not 12 launches of each kernel")
+    del model
+    torch.cuda.empty_cache()
 
 
 def phase_kernel_times(pa, torch, dev, b=256, n=196, h=12, d=64):
@@ -211,25 +472,41 @@ def phase_kernel_times(pa, torch, dev, b=256, n=196, h=12, d=64):
             "bwd": cuda_ms(lambda: pa.packed_attention_bwd_cuda(qkv, g, vecs, *args), 10),
             "bwd_plain": cuda_ms(lambda: pa.packed_attention_bwd_plain(qkv, g, vecs, *args), 10),
         }
+        t["fwd_lib"] = t["bwd_lib"] = None
+        if not robust:
+            q, k, v = qkv.reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()
+            t["fwd_lib"], t["bwd_lib"] = sdpa_ms(
+                torch, q, k, v, None, g.reshape(b, n, h, d).transpose(1, 2).contiguous())
+            del q, k, v
+        qkv_b, out_b, vec_b = qkv.numel() * 2, g.numel() * 2, vecs.numel() * 4
+        (t["fwd_bound"], t["fwd_by"]), (t["bwd_bound"], t["bwd_by"]) = attention_work(
+            b * h, n, d, d, (qkv_b, qkv_b + out_b + vec_b), (out_b + vec_b, qkv_b),
+            robust, 3, True, 0)
         times[robust] = t
+        lib = "" if robust else (f"; sdpa fwd {t['fwd_lib']:.4f} bwd {t['bwd_lib']:.4f}")
         log(f"timing: packed attention bf16 [{b},{n},{3 * h * d}] robust={int(robust)} "
-            f"(3, final) ms: fwd {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}) "
-            f"bwd {t['bwd']:.4f} (plain {t['bwd_plain']:.4f})")
+            f"(3, final) ms: fwd {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, bound "
+            f"{t['fwd_bound']:.4f} {t['fwd_by']}) bwd {t['bwd']:.4f} (plain "
+            f"{t['bwd_plain']:.4f}, bound {t['bwd_bound']:.4f} {t['bwd_by']}){lib}")
+    del qkv, g
+    torch.cuda.empty_cache()
     return times
 
 
-def phase_step_times(torch, dev, batch=256, steps=10, windows=3):
+def phase_step_times(torch, dev, name, batch, flops, steps=10, windows=3):
+    """Train step of `name` (bf16, 1000 classes, AdamW lr 1e-3) at `batch`,
+    vanilla then robust: median img/s of `windows` windows of `steps` steps,
+    MFU from the analytic `flops` per image, and peak device memory."""
     from noise_robust_vit_tpu_torch import create_model
     from noise_robust_vit_tpu_torch.train import create_train_state
 
-    flops = vit_train_flops_per_image()
     rng = np.random.default_rng(4)
     x = torch.from_numpy(rng.standard_normal((batch, 224, 224, 3), dtype=np.float32)).to(dev, torch.bfloat16)
     y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
     result = {}
     for robust in (False, True):
-        model = create_model("simple_vit_b16", num_classes=1000, image_size=224,
-                             robust=robust, dtype=torch.bfloat16, device=dev, seed=0)
+        model = create_model(name, num_classes=1000, image_size=224, robust=robust,
+                             dtype=torch.bfloat16, device=dev, seed=0)
         state = create_train_state(model, lr=1e-3, weight_decay=0.05)
         torch.cuda.reset_peak_memory_stats(dev)
         float(state.train_step(x, y))  # warm-up
@@ -243,15 +520,16 @@ def phase_step_times(torch, dev, batch=256, steps=10, windows=3):
         rate = statistics.median(rates)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         result[robust] = rate
-        log(f"timing: train step simple_vit_b16 bf16 batch={batch} robust={int(robust)}: "
+        log(f"timing: train step {name} bf16 batch={batch} robust={int(robust)}: "
             f"{rate:.2f} img/s (windows {[round(r, 2) for r in rates]}), "
             f"{1e3 * batch / rate:.2f} ms/step, MFU {rate * flops / PEAK_BF16:.4f}, "
             f"peak mem {peak:.2f} GiB, loss {loss:.4f}")
         del model, state
+    torch.cuda.empty_cache()
     return result
 
 
-def phase_profile(torch, dev, batch=256):
+def phase_profile(torch, dev, name, batch, rows=25):
     """Device time by op and kernel over one robust train step."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -261,8 +539,8 @@ def phase_profile(torch, dev, batch=256):
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((batch, 224, 224, 3), dtype=np.float32)).to(dev, torch.bfloat16)
     y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
-    model = create_model("simple_vit_b16", num_classes=1000, image_size=224,
-                         robust=True, dtype=torch.bfloat16, device=dev, seed=0)
+    model = create_model(name, num_classes=1000, image_size=224, robust=True,
+                         dtype=torch.bfloat16, device=dev, seed=0)
     state = create_train_state(model)
     for _ in range(2):
         state.train_step(x, y)
@@ -270,8 +548,18 @@ def phase_profile(torch, dev, batch=256):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state.train_step(x, y)
         torch.cuda.synchronize()
-    log("profile: robust train step, batch 256, top rows by device time")
-    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
+    log(f"profile: {name} robust train step, batch {batch}, top rows by device time")
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=rows))
+    del model, state
+    torch.cuda.empty_cache()
+
+
+def kernel_entry(name, src, replaces, launches, err, t, direction):
+    """One row of the {"kernels": [...]} line: the robust (3, final) times."""
+    return {"name": name, "route": "cuda", "source": CSRC + src, "replaces": PALLAS + replaces,
+            "launches": launches, "max_abs_err": err, "ms": t[direction],
+            "plain_ms": t[direction + "_plain"], "bound_ms": t[direction + "_bound"],
+            "bound_by": t[direction + "_by"], "library_ms": t[direction + "_lib"]}
 
 
 def main() -> int:
@@ -286,6 +574,7 @@ def main() -> int:
     log(f"device: {card_line()} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    from noise_robust_vit_tpu_torch.ops.cuda import biased_attention as ba
     from noise_robust_vit_tpu_torch.ops.cuda import build
     from noise_robust_vit_tpu_torch.ops.cuda import packed_attention as pa
 
@@ -295,26 +584,36 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
 
     worst = phase_kernels(pa, torch, dev)
+    worst_b = phase_biased_kernels(ba, torch, dev)
     torch.cuda.synchronize()
     phase_small_model(torch, dev)
+    phase_small_swin(ba, torch, dev)
     torch.cuda.synchronize()
-    counts = phase_train(pa, torch, dev)
+    counts = phase_train(pa.launches, torch, dev, "simple_vit_b16", {True: 12, False: 12})
+    counts_b = phase_train(ba.launches, torch, dev, "swin_t", {True: 12, False: 0})
+    phase_swin_v2(ba, torch, dev)
     torch.cuda.synchronize()
     ktimes = phase_kernel_times(pa, torch, dev)
+    btimes = phase_biased_times(ba, torch, dev)
     torch.cuda.synchronize()
-    phase_step_times(torch, dev)
+    phase_step_times(torch, dev, "simple_vit_b16", 256, vit_train_flops_per_image())
+    macs = swin_fwd_macs_per_image()
+    log(f"timing: swin_t forward {macs / 1e9:.4f} GMACs per image (torchvision "
+        f"publishes 4.49 GFLOPS, counted as multiply-adds)")
+    phase_step_times(torch, dev, "swin_t", 128, 3 * 2 * macs)
     torch.cuda.synchronize()
-    phase_profile(torch, dev)
+    phase_profile(torch, dev, "simple_vit_b16", 256)
+    phase_profile(torch, dev, "swin_t", 128)
 
     kernels = [
-        {"name": "packed_attention_fwd", "route": "cuda", "source": FWD_SRC,
-         "replaces": "noise_robust_vit_tpu/ops/pallas/block_attention.py:234",
-         "launches": counts["fwd"], "max_abs_err": worst["fwd"],
-         "ms": ktimes[True]["fwd"], "plain_ms": ktimes[True]["fwd_plain"]},
-        {"name": "packed_attention_bwd", "route": "cuda", "source": BWD_SRC,
-         "replaces": "noise_robust_vit_tpu/ops/pallas/block_attention.py:284",
-         "launches": counts["bwd"], "max_abs_err": worst["bwd"],
-         "ms": ktimes[True]["bwd"], "plain_ms": ktimes[True]["bwd_plain"]},
+        kernel_entry("packed_attention_fwd", "packed_attention_fwd.cu", "block_attention.py:234",
+                     counts["fwd"], worst["fwd"], ktimes[True], "fwd"),
+        kernel_entry("packed_attention_bwd", "packed_attention_bwd.cu", "block_attention.py:284",
+                     counts["bwd"], worst["bwd"], ktimes[True], "bwd"),
+        kernel_entry("biased_attention_fwd", "biased_attention_fwd.cu", "biased_attention.py:230",
+                     counts_b["fwd"], worst_b["fwd"], btimes[True], "fwd"),
+        kernel_entry("biased_attention_bwd", "biased_attention_bwd.cu", "biased_attention.py:296",
+                     counts_b["bwd"], worst_b["bwd"], btimes[True], "bwd"),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -6,9 +6,15 @@ Paths map by name, because the port's modules carry the flax names
 (``transformer/layers_0_attn/to_qkv/kernel`` →
 ``transformer.layers_0_attn.to_qkv.weight``):
 
-* a Dense ``kernel [in, out]`` becomes a Linear ``weight [out, in]``;
+* a Dense ``kernel [in, out]`` becomes a Linear ``weight [out, in]``
+  (also inside Swin v2's ``cpb_fc1`` / ``cpb_fc2``);
+* a Conv ``kernel`` HWIO ``[kh, kw, in, out]`` becomes torch's OIHW
+  ``[out, in, kh, kw]``;
 * a LayerNorm ``scale`` becomes ``weight``;
-* a ``bias`` stays ``bias``.
+* a ``bias`` stays ``bias``;
+* any other named leaf is a parameter of the module itself and keeps its
+  name and layout (Swin's ``relative_position_bias_table``, v2's
+  ``qkv_bias`` and ``logit_scale``).
 
 Only numpy is needed on the way in, so this imports where JAX is absent.
 """
@@ -42,17 +48,18 @@ def convert_params(params: Mapping) -> dict[str, torch.Tensor]:
     state = {}
     for path, value in _flatten_tree(params).items():
         *module, leaf = path
+        name = leaf
         if leaf == "kernel":
-            if value.ndim != 2:
-                raise ValueError(f"{'/'.join(path)}: only Dense kernels are "
-                                 f"mapped, got shape {value.shape}")
-            name, value = "weight", value.T
+            if value.ndim == 2:
+                value = value.T
+            elif value.ndim == 4:
+                value = value.transpose(3, 2, 0, 1)
+            else:
+                raise ValueError(f"{'/'.join(path)}: a kernel must be a Dense [in, out] "
+                                 f"or a 2-D Conv HWIO, got shape {value.shape}")
+            name = "weight"
         elif leaf == "scale":
             name = "weight"
-        elif leaf == "bias":
-            name = "bias"
-        else:
-            raise ValueError(f"{'/'.join(path)}: no mapping for leaf {leaf!r}")
         state[".".join([*module, name])] = torch.tensor(
-            np.asarray(value, dtype=np.float32))
+            np.ascontiguousarray(value, dtype=np.float32))
     return state

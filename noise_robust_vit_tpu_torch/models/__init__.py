@@ -2,5 +2,6 @@
 
 from .factory import create_model, register_model
 from .simple_vit import SimpleViT
+from .swin import SwinTransformer
 
-__all__ = ["SimpleViT", "create_model", "register_model"]
+__all__ = ["SimpleViT", "SwinTransformer", "create_model", "register_model"]

@@ -1,8 +1,12 @@
 """Architecture registry: name → constructor (counterpart of
 ``noise_robust_vit_tpu/models/factory.py``; the port's entries so far are
-``simple_vit`` and ``simple_vit_b16``). Every entry accepts
-``(num_classes, image_size, robust, dtype, device)``; ``create_model`` draws
-the initial weights from a ``torch.Generator`` seeded with ``seed``."""
+``simple_vit``, ``simple_vit_b16`` and the Swin v1/v2 builders). Every entry
+accepts ``(num_classes, image_size, robust, dtype, device)``.
+``create_model`` builds on the card unless ``device`` names another (it
+raises when there is no card), draws the initial weights from a
+``torch.Generator`` seeded with ``seed``, and gives the stochastic-depth
+layers a generator seeded with ``seed + 1``. On the meta device nothing is
+drawn."""
 
 from __future__ import annotations
 
@@ -10,7 +14,9 @@ from typing import Callable
 
 import torch
 
-from .layers import init_params
+from ..utils import resolve_device
+from . import swin
+from .layers import DropPath, init_params
 from .simple_vit import SimpleViT
 
 _REGISTRY: dict[str, Callable] = {}
@@ -32,11 +38,19 @@ def create_model(name: str, *, num_classes: int, image_size: int = 224,
                  **kwargs) -> torch.nn.Module:
     if name not in _REGISTRY:
         raise ValueError(f"unknown architecture {name!r}; known: {sorted(_REGISTRY)}")
+    device = resolve_device(device)
     model = _REGISTRY[name](num_classes=num_classes, image_size=image_size,
                             robust=robust, dtype=dtype, device=device, **kwargs)
-    generator = torch.Generator(device=torch.device(device or "cpu"))
+    if device.type == "meta":
+        return model
+    generator = torch.Generator(device=device)
     generator.manual_seed(seed)
     init_params(model, generator)
+    drop_generator = torch.Generator(device=device)
+    drop_generator.manual_seed(seed + 1)
+    for m in model.modules():
+        if isinstance(m, DropPath):
+            m.generator = drop_generator
     return model
 
 
@@ -64,3 +78,7 @@ def _simple_vit_b16(num_classes, image_size, robust, dtype, device=None, **kw):
         dim=768, depth=12, heads=12, mlp_dim=3072,
         robust=robust, dtype=dtype, device=device, **kw,
     )
+
+
+for _name in ("swin_t", "swin_s", "swin_b", "swin_v2_t", "swin_v2_s", "swin_v2_b"):
+    register_model(_name)(getattr(swin, _name))

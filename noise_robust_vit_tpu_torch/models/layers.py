@@ -9,7 +9,6 @@ so that ``convert.convert_params`` maps one onto the other by name.
 
 from __future__ import annotations
 
-import math
 from typing import Callable
 
 import torch
@@ -17,19 +16,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
+from ..utils import lecun_normal_init, zeros_init
 
-__all__ = ["Attention", "Dense", "FeedForward", "LayerNorm", "PatchEmbed",
-           "Transformer", "init_params"]
+__all__ = ["Attention", "Dense", "DropPath", "FeedForward", "LayerNorm",
+           "PatchConv", "PatchEmbed", "Transformer", "init_params"]
 
 
 class Dense(nn.Linear):
     """``nn.Linear`` whose input, weight and bias are cast to ``dtype`` at use
-    (flax ``nn.Dense(dtype=...)``)."""
+    (flax ``nn.Dense(dtype=...)``). ``kernel_init`` and ``bias_init`` are
+    the flax module's initializers (``utils``), applied by ``init_params``."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 kernel_init: Callable | None = None, bias_init: Callable | None = None):
         super().__init__(in_features, out_features, bias=bias, device=device)
         self.compute_dtype = dtype
+        self.kernel_init = kernel_init or lecun_normal_init()
+        self.bias_init = bias_init or zeros_init()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
@@ -54,18 +58,20 @@ class LayerNorm(nn.LayerNorm):
 
 @torch.no_grad()
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
-    """Flax's default initializers, drawn from ``generator``: Dense kernels
-    lecun-normal (truncated at ±2σ), biases zero, LayerNorm scale one."""
+    """The flax modules' initializers, drawn from ``generator``: each Dense
+    its own (lecun-normal kernels truncated at ±2σ and zero biases unless it
+    names others), LayerNorm scale one and bias zero, and a module's own
+    parameters through its ``init_own_params(generator)``."""
     for m in module.modules():
         if isinstance(m, Dense):
-            std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std,
-                                  generator=generator)
+            m.kernel_init(m.weight, generator)
             if m.bias is not None:
-                m.bias.zero_()
+                m.bias_init(m.bias, generator)
         elif isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        if hasattr(m, "init_own_params"):
+            m.init_own_params(generator)
 
 
 class FeedForward(nn.Module):
@@ -152,6 +158,15 @@ class Transformer(nn.Module):
         return x
 
 
+def _patches(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """NHWC images → ``[B, H/ph, W/pw, ph·pw·C]`` patches, flattened in
+    (p1, p2, c) order."""
+    b, h, w, c = x.shape
+    gh, gw = h // ph, w // pw
+    x = x.reshape(b, gh, ph, gw, pw, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, gh, gw, ph * pw * c)
+
+
 class PatchEmbed(nn.Module):
     """Patchify + linear embedding over NHWC images (ref simple_vit.py:126-131:
     ``Rearrange('b c (h p1) (w p2) -> b h w (p1 p2 c)')`` + Linear); the
@@ -167,11 +182,58 @@ class PatchEmbed(nn.Module):
         self.proj = Dense(ph * pw * channels, dim, bias=bias, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, h, w, c = x.shape
-        ph, pw = self.patch_size
-        gh, gw = h // ph, w // pw
-        x = x.reshape(b, gh, ph, gw, pw, c).permute(0, 1, 3, 2, 4, 5)
-        x = self.proj(x.reshape(b, gh, gw, ph * pw * c))
+        x = self.proj(_patches(x, *self.patch_size))
         if self.flatten:
-            x = x.reshape(b, gh * gw, -1)
+            x = x.reshape(x.shape[0], -1, x.shape[-1])
         return x
+
+
+class PatchConv(nn.Module):
+    """A convolution whose stride equals its kernel (flax ``nn.Conv`` with
+    ``strides=kernel_size``, SAME padding, on an input that is a multiple of
+    the kernel, so no padding) over NHWC images: each patch, flattened in
+    (p1, p2, c) order, goes through one Dense. The weight is kept OIHW, as
+    torch's convolutions keep it; ``forward`` reads it as ``[out, ph·pw·c]``."""
+
+    def __init__(self, channels: int, dim: int, patch_size: tuple[int, int],
+                 dtype: torch.dtype = torch.float32, device=None,
+                 kernel_init: Callable | None = None):
+        super().__init__()
+        ph, pw = patch_size
+        self.patch_size = patch_size
+        self.compute_dtype = dtype
+        self.kernel_init = kernel_init or lecun_normal_init()
+        self.weight = nn.Parameter(torch.empty(dim, channels, ph, pw, device=device))
+        self.bias = nn.Parameter(torch.empty(dim, device=device))
+        with torch.no_grad():
+            self.init_own_params(None)
+
+    def init_own_params(self, generator: torch.Generator) -> None:
+        # the init reads fans from a Dense-shaped [out, ph·pw·c] view
+        self.kernel_init(self.weight.view(self.weight.shape[0], -1), generator)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[1], x.shape[2]
+        ph, pw = self.patch_size
+        if h % ph or w % pw:
+            raise ValueError(f"image {h}×{w} is not a multiple of the patch {ph}×{pw}")
+        x = _patches(x, ph, pw)
+        dt = self.compute_dtype
+        weight = self.weight.permute(0, 2, 3, 1).reshape(self.weight.shape[0], -1)
+        return F.linear(x.to(dt), weight.to(dt), self.bias.to(dt))
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (ref utils.py:1100-1112): active in
+    training mode, the identity in eval mode and at rate 0. The mask comes
+    from ``generator`` (None takes torch's default generator of the device),
+    which ``create_model`` sets to one seeded from its ``seed``."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ops.drop_path(x, self.rate, self.generator, deterministic=not self.training)

@@ -1,8 +1,15 @@
 """Compute ops of the port (counterpart of ``noise_robust_vit_tpu/ops``)."""
 
 from .activations import gelu
-from .attention import dot_product_attention, packed_attention, packed_dispatch
+from .attention import (
+    biased_attention,
+    biased_dispatch,
+    dot_product_attention,
+    packed_attention,
+    packed_dispatch,
+)
 from .posemb import posemb_sincos_2d
+from .regularizers import drop_path
 from .sinkhorn import (
     robust_softmax,
     sinkhorn_attention,
@@ -11,7 +18,10 @@ from .sinkhorn import (
 )
 
 __all__ = [
+    "biased_attention",
+    "biased_dispatch",
     "dot_product_attention",
+    "drop_path",
     "gelu",
     "packed_attention",
     "packed_dispatch",

@@ -1,22 +1,27 @@
 """Multi-head attention ops (counterpart of
 ``noise_robust_vit_tpu/ops/attention.py``): the plain vector-form path over
-``[B, H, N, D]`` tensors, and the dispatch to the packed-qkv kernels.
+``[B, H, N, D]`` tensors, and the dispatch to the packed-qkv and the biased
+kernels.
 
 Dispatch rule: a packed ``[B, N, 3·H·D]`` tensor whose shape passes the
-kernels' gate goes to ``packed_attention``, which launches the CUDA kernel
-for a CUDA tensor and runs its plain PyTorch version for a CPU tensor. A
-shape outside the gate takes ``dot_product_attention``. The choice is made
-on shape before the call, never after a kernel error.
+packed kernels' gate goes to ``packed_attention``; a robust windowed
+attention whose shape passes the biased kernels' gate goes to
+``biased_attention``. Each launches its CUDA kernel for a CUDA tensor and
+runs its plain PyTorch version for a CPU tensor. A shape outside the gate
+takes ``dot_product_attention`` (or the model's own plain path). The choice
+is made on shape before the call, never after a kernel error.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .cuda.biased_attention import BiasedAttention, biased_attention_supported
 from .cuda.packed_attention import PackedAttention, packed_attention_supported
 from .sinkhorn import sinkhorn_scalings
 
-__all__ = ["dot_product_attention", "packed_attention", "packed_dispatch"]
+__all__ = ["biased_attention", "biased_dispatch", "dot_product_attention",
+           "packed_attention", "packed_dispatch"]
 
 # Whether the packed kernels serve a self-attention shape (vanilla and robust
 # both take them): the kernels' own shape gate.
@@ -34,6 +39,33 @@ def packed_attention(qkv: torch.Tensor, heads: int, dim_head: int, *,
     return PackedAttention.apply(qkv, int(heads), int(dim_head), float(scale),
                                  bool(robust), int(sinkhorn_iters),
                                  bool(final_row_norm))
+
+
+def biased_dispatch(robust: bool, bw: int, heads: int, n: int, d: int, dv: int,
+                    num_windows: int, sinkhorn_iters: int = 3) -> bool:
+    """Whether the biased kernels serve a windowed attention: the Sinkhorn
+    path only, as in the JAX package (plain-softmax windowed models stay on
+    batched matmuls and a softmax), and a shape inside the kernels' gate."""
+    return robust and biased_attention_supported(bw, heads, n, d, dv, num_windows,
+                                                 sinkhorn_iters)
+
+
+def biased_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor, *, scale: float | None = None,
+                     robust: bool = False, sinkhorn_iters: int = 3,
+                     final_row_norm: bool = True, num_windows: int = 1,
+                     no_bias: bool = False) -> torch.Tensor:
+    """Fused attention with an additive per-(window, head) logit bias:
+    ``q/k [BW, H, N, D]``, ``v [BW, H, N, DV]``, ``bias [nW, H, N, N]``
+    broadcast over the batch (window ``bw`` reads row ``bw % nW``).
+    ``no_bias=True`` declares ``bias`` known to be zero: the kernels skip the
+    bias add and the dbias sum, and its gradient is zero (Twins local
+    attention). Returns ``[BW, H, N, DV]`` in ``v``'s dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return BiasedAttention.apply(q, k, v, bias, float(scale), bool(robust),
+                                 int(sinkhorn_iters), bool(final_row_norm),
+                                 int(num_windows), bool(no_bias))
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

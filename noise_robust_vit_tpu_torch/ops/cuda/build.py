@@ -18,8 +18,13 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import TYPE_CHECKING
 
-__all__ = ["build", "build_dir", "error_string", "load_library", "sources"]
+if TYPE_CHECKING:
+    import torch
+
+__all__ = ["LaunchCounts", "build", "build_dir", "error_string", "load_library",
+           "ptr", "raise_on", "sources"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -36,6 +41,15 @@ _ENTRIES = {
         # qkv, dout, vecs, dqkv, scratch, dtype, B, N, H, D, scale, robust,
         # iters, final_row, n_slots, stream
         [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _VP]),
+    "nrv_biased_attention_fwd": (
+        # q, k, v, bias, out, vecs, dtype, BW, H, N, D, DV, nW, scale, robust,
+        # iters, final_row, stream
+        [_VP] * 6 + [_I] * 7 + [_F, _I, _I, _I, _VP]),
+    "nrv_biased_attention_bwd": (
+        # q, k, v, bias, dout, vecs, dq, dk, dv, partial, dbias, dtype, BW, H,
+        # N, D, DV, nW, scale, robust, iters, final_row, chunks, per_chunk,
+        # stream
+        [_VP] * 11 + [_I] * 7 + [_F] + [_I] * 5 + [_VP]),
     "nrv_cuda_error_string": ([_I]),
 }
 
@@ -101,3 +115,26 @@ def load_library() -> ctypes.CDLL:
 
 def error_string(err: int) -> str:
     return load_library().nrv_cuda_error_string(err).decode()
+
+
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """A tensor's device pointer for a C entry point (null for None)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({error_string(err)})")
+
+
+class LaunchCounts:
+    """Kernel launches since the last ``reset``; each wrapper adds one
+    where it launches its kernel, and nowhere else."""
+
+    def __init__(self):
+        self.fwd = 0
+        self.bwd = 0
+
+    def reset(self):
+        self.fwd = 0
+        self.bwd = 0

@@ -324,10 +324,42 @@ __device__ void rows_dot(const float* E, int n, int ld, const float* w, Post pos
   __syncthreads();
 }
 
+// Partial column sums of a narrow matrix: the rows are dealt out to
+// `groups` groups of cw threads, and thread grp·cw + j leaves group grp's
+// Σ E[i, j]·w[i] in the returned shared array. Not a template, so that
+// every caller shares one array (a template's static shared array would be
+// one per instantiation).
+__device__ inline float* cols_partials(const float* E, int n, int ld, const float* w,
+                                       int cw, int groups) {
+  __shared__ float part[kThreads];
+  const int j = threadIdx.x % cw, grp = threadIdx.x / cw;
+  float s = 0.f;
+  if (grp < groups && j < n)
+    for (int i = grp; i < n; i += groups) s = fmaf(E[(size_t)i * ld + j], w[i], s);
+  part[threadIdx.x] = s;
+  __syncthreads();
+  return part;
+}
+
 // post(j, Σ_i E[i, j]·w[i]) for every column j: one thread per column, so
-// the block reads each row whole before the next.
+// the block reads each row whole before the next. A narrow matrix (at most
+// kThreads / 2 columns, a window of 49 or 64 tokens) would leave most
+// threads idle that way, so there the rows are dealt out to groups of
+// threads, and the groups' partial sums are added in a fixed order.
 template <class Post>
 __device__ void cols_dot(const float* E, int n, int ld, const float* w, Post post) {
+  const int cw = (n + 31) / 32 * 32;  // columns of one group, whole warps
+  const int groups = kThreads / cw;
+  if (groups > 1) {
+    const float* part = cols_partials(E, n, ld, w, cw, groups);
+    if (threadIdx.x < n) {
+      float t = 0.f;
+      for (int g = 0; g < groups; ++g) t += part[g * cw + threadIdx.x];
+      post(threadIdx.x, t);
+    }
+    __syncthreads();
+    return;
+  }
   for (int j = threadIdx.x; j < n; j += kThreads) {
     float s = 0.f;
     for (int i = 0; i < n; ++i) s = fmaf(E[(size_t)i * ld + j], w[i], s);

@@ -4,29 +4,21 @@ scaling-vector form, read in place from the ``[B, N, 3·H·D]`` output of
 
 Counterpart of ``noise_robust_vit_tpu/ops/pallas/block_attention.py``
 (``packed_attention``; its Pallas calls are ``_packed_fwd_impl`` and
-``_packed_bwd_impl``) with the math of
-``noise_robust_vit_tpu/ops/pallas/sinkhorn_attention.py``
-(``_fwd_math_batched``, ``_restore_vec_rows``, ``_reverse_chain_inner``,
-``_bwd_math_batched``).
+``_packed_bwd_impl``).
 
 Three pieces live here:
 
 * the plain PyTorch versions ``packed_attention_fwd_plain`` and
-  ``packed_attention_bwd_plain``: the same algorithm as the CUDA kernels
-  (unnormalized ``e = exp(s − m)`` with the row normalizer folded into the
-  scaling vectors, the same residual rows, the same hand-derived reverse
-  chain), written in eager torch over a leading ``B·H`` dim. CPU tensors
-  take them, and the card's checks compare the kernels against them;
+  ``packed_attention_bwd_plain``: the kernels' algorithm (``plain.py``) on
+  the heads split out of the packed layout. CPU tensors take them, and the
+  card's checks compare the kernels against them;
 * the ctypes wrappers ``packed_attention_fwd_cuda`` / ``_bwd_cuda``, which
   check what the kernels take, allocate outputs and scratch, launch on the
   current stream and count their launches in ``launches``;
 * ``PackedAttention``, the ``torch.autograd.Function`` tying the two
   directions together.
 
-The residual stack is ``[B, H, R, N]`` float32: the Sinkhorn a-rows
-(``iters − 1`` iteration rows, plus the final row when ``final_row``), the
-``iters`` b-rows, and the softmax log-normalizer as the last row (robust);
-the log-normalizer alone (vanilla).
+The residual stack is ``[B, H, R, N]`` float32, rows as in ``plain.py``.
 """
 
 from __future__ import annotations
@@ -35,7 +27,8 @@ import ctypes
 
 import torch
 
-from ..sinkhorn import clamped_recip
+from .build import LaunchCounts, ptr, raise_on
+from .plain import attention_bwd_plain, attention_fwd_plain, num_vecs
 
 __all__ = [
     "PackedAttention",
@@ -65,27 +58,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCKS_PER_SM = 2
 
 
-class LaunchCounts:
-    """Kernel launches since the last ``reset``; each wrapper adds one
-    where it launches its kernel, and nowhere else."""
-
-    def __init__(self):
-        self.fwd = 0
-        self.bwd = 0
-
-    def reset(self):
-        self.fwd = 0
-        self.bwd = 0
-
-
 launches = LaunchCounts()
-
-
-def num_vecs(iters: int, final_row: bool, robust: bool) -> int:
-    """Residual rows (``block_attention.py::_num_vecs``)."""
-    if not robust:
-        return 1
-    return max(iters - 1, 0) + int(final_row) + iters + 1
 
 
 def packed_attention_supported(n: int, dim_head: int, heads: int, batch: int,
@@ -115,113 +88,23 @@ def _merge_heads(xs, b: int, heads: int, dtype: torch.dtype) -> torch.Tensor:
 
 def packed_attention_fwd_plain(qkv, heads, dim_head, scale, robust=False,
                                iters=3, final_row=True):
-    """Forward in eager torch; returns ``(out [B,N,H·D], vecs [B,H,R,N])``.
-    Mirrors ``_fwd_math_batched`` at ``n == n_pad`` (no padded rows)."""
+    """Forward in eager torch; returns ``(out [B,N,H·D], vecs [B,H,R,N])``."""
     b, n, _ = qkv.shape
     q, k, v = _split_heads(qkv, 3, heads, dim_head)
-    kb = q.shape[0]
-    s = torch.bmm(q, k.transpose(1, 2)) * scale
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s - m)
-    r = e.sum(dim=-1, keepdim=True)  # [K, N, 1]
-    lse_row = (m + torch.log(r)).reshape(kb, 1, n)
-    inv_r = 1.0 / r
-    a_scale = inv_r
-    a_rows, b_rows = [], []
-    if robust:
-        b_row = torch.ones(kb, 1, n, dtype=torch.float32, device=qkv.device)
-        for i in range(iters):
-            # i == 0: rowsum(softmax) ≡ 1, so the first row norm is skipped
-            if i > 0:
-                a = clamped_recip((e * b_row).sum(-1, keepdim=True) * inv_r)
-                a_rows.append(a.reshape(kb, 1, n))
-                a_scale = a * inv_r
-            b_row = clamped_recip((e * a_scale).sum(-2, keepdim=True))
-            b_rows.append(b_row)
-        if final_row:
-            a = clamped_recip((e * b_row).sum(-1, keepdim=True) * inv_r)
-            a_rows.append(a.reshape(kb, 1, n))
-            a_scale = a * inv_r
-        v = v * b_row.reshape(kb, n, 1)
-    out = torch.bmm(e, v) * a_scale
-    vecs = torch.cat(a_rows + b_rows + [lse_row], dim=1)
+    out, vecs = attention_fwd_plain(q, k, v, scale, robust, iters, final_row)
     return (_merge_heads([out], b, heads, qkv.dtype),
             vecs.reshape(b, heads, -1, n))
-
-
-def _reverse_chain_inner(attn, dA, da, db_row, row_direct, as_r, bs_r, iters,
-                         final_row):
-    """``sinkhorn_attention.py::_reverse_chain_inner`` (default path): returns
-    ``inner`` with ``ds = attn ⊙ inner``. ``as_r``/``bs_r`` are ROW vectors
-    ``[K, 1, N]``; the rank-1 terms are collected and applied in one bmm."""
-    kb, n = attn.shape[0], attn.shape[-1]
-    a_fin = as_r[-1].reshape(kb, n, 1)
-    terms = []
-    svec = torch.zeros_like(da)
-    da_live = not final_row
-    if final_row:
-        tmp = da * a_fin
-        dr = -(tmp * a_fin)
-        terms.append((dr.reshape(kb, 1, n), bs_r[-1]))
-        svec = -tmp
-        db_row = db_row + (attn * dr).sum(-2, keepdim=True)
-    for t in range(iters - 1, -1, -1):
-        dc = db_row * -(bs_r[t + 1] * bs_r[t + 1])
-        m_dc = (attn * dc).sum(-1, keepdim=True)
-        terms.append((as_r[t], dc))
-        if t == 0:
-            svec = svec + m_dc
-            break
-        a_t = as_r[t].reshape(kb, n, 1)
-        svec = svec + a_t * m_dc
-        da_eff = (da + m_dc) if (da_live and t == iters - 1) else m_dc
-        tmp = da_eff * a_t
-        svec = svec - tmp
-        dr = -(tmp * a_t)
-        terms.append((dr.reshape(kb, 1, n), bs_r[t]))
-        db_row = (attn * dr).sum(-2, keepdim=True)
-    row_term = row_direct + svec
-    u_mat = torch.cat([u for u, _ in terms], dim=1)  # [K, T, N]
-    v_mat = torch.cat([w for _, w in terms], dim=1)
-    return (dA - row_term) + torch.bmm(u_mat.transpose(1, 2), v_mat)
 
 
 def packed_attention_bwd_plain(qkv, dout, vecs, heads, dim_head, scale,
                                robust=False, iters=3, final_row=True):
     """Backward in eager torch from the stored residuals; returns the packed
-    gradient ``dqkv [B, N, 3·H·D]``. Mirrors ``_bwd_math_batched``."""
+    gradient ``dqkv [B, N, 3·H·D]``."""
     b, n, _ = qkv.shape
     q, k, v = _split_heads(qkv, 3, heads, dim_head)
     (g,) = _split_heads(dout, 1, heads, dim_head)
-    kb = q.shape[0]
-    vecs = vecs.reshape(kb, -1, n)
-    s = torch.bmm(q, k.transpose(1, 2)) * scale
-    attn = torch.exp(s - vecs[:, -1][:, :, None])  # stored log-normalizer
-    if not robust:
-        dv = torch.bmm(attn.transpose(1, 2), g)
-        dA = torch.bmm(g, v.transpose(1, 2))
-        ds = attn * (dA - (dA * attn).sum(-1, keepdim=True))
-    else:
-        ka = max(iters - 1, 0) + int(final_row)
-        ones = torch.ones(kb, 1, n, dtype=torch.float32, device=qkv.device)
-        as_r = [ones] + [vecs[:, j][:, None, :] for j in range(ka)]
-        bs_r = [ones] + [vecs[:, ka + j][:, None, :] for j in range(iters)]
-        a_fin = as_r[-1].reshape(kb, n, 1)
-        b_fin = bs_r[-1].reshape(kb, n, 1)
-        bv = b_fin * v
-        o_over_a = torch.bmm(attn, bv)
-        ag = a_fin * g
-        t1 = torch.bmm(attn.transpose(1, 2), ag)  # Aᵀ(a⊙G)
-        dv = b_fin * t1
-        dA = torch.bmm(ag, bv.transpose(1, 2))
-        da = (g * o_over_a).sum(-1, keepdim=True)
-        db = (t1 * v).sum(-1, keepdim=True)
-        row_direct = a_fin * da
-        inner = _reverse_chain_inner(attn, dA, da, db.reshape(kb, 1, n),
-                                     row_direct, as_r, bs_r, iters, final_row)
-        ds = attn * inner
-    dq = scale * torch.bmm(ds, k)
-    dk = scale * torch.bmm(ds.transpose(1, 2), q)
+    dq, dk, dv, _ = attention_bwd_plain(q, k, v, g, vecs.reshape(b * heads, -1, n),
+                                        scale, robust, iters, final_row)
     return _merge_heads([dq, dk, dv], b, heads, qkv.dtype)
 
 
@@ -258,17 +141,6 @@ def _n_slots(device: torch.device, kb: int) -> int:
     return max(1, min(kb, sms * _BLOCKS_PER_SM))
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _raise_on(err: int, what: str):
-    if err != 0:
-        from .build import error_string
-
-        raise RuntimeError(f"{what} failed: CUDA error {err} ({error_string(err)})")
-
-
 def packed_attention_fwd_cuda(qkv, heads, dim_head, scale, robust=False,
                               iters=3, final_row=True):
     """Launch the forward kernel; returns ``(out, vecs)`` like the plain
@@ -288,11 +160,11 @@ def packed_attention_fwd_cuda(qkv, heads, dim_head, scale, robust=False,
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.nrv_packed_attention_fwd(
-            _ptr(qkv), _ptr(out), _ptr(vecs), _ptr(scratch),
+            ptr(qkv), ptr(out), ptr(vecs), ptr(scratch),
             _DTYPE_CODES[qkv.dtype], b, n, heads, dim_head, float(scale),
             int(robust), int(iters), int(final_row), slots,
             ctypes.c_void_p(stream))
-    _raise_on(err, "packed attention forward kernel")
+    raise_on(err, "packed attention forward kernel")
     launches.fwd += 1
     return out, vecs
 
@@ -324,11 +196,11 @@ def packed_attention_bwd_cuda(qkv, dout, vecs, heads, dim_head, scale,
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = lib.nrv_packed_attention_bwd(
-            _ptr(qkv), _ptr(dout), _ptr(vecs), _ptr(dqkv), _ptr(scratch),
+            ptr(qkv), ptr(dout), ptr(vecs), ptr(dqkv), ptr(scratch),
             _DTYPE_CODES[qkv.dtype], b, n, heads, dim_head, float(scale),
             int(robust), int(iters), int(final_row), slots,
             ctypes.c_void_p(stream))
-    _raise_on(err, "packed attention backward kernel")
+    raise_on(err, "packed attention backward kernel")
     launches.bwd += 1
     return dqkv
 

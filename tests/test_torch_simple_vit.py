@@ -104,7 +104,8 @@ def test_adamw_matches_optax(steps):
 
 def test_train_step_runs():
     model = create_model("simple_vit", num_classes=10, image_size=32, robust=True,
-                         dim=64, depth=2, heads=2, mlp_dim=128, dim_head=32)
+                         dim=64, depth=2, heads=2, mlp_dim=128, dim_head=32,
+                         device="cpu")
     state = create_train_state(model)
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal((4, 32, 32, 3)).astype(np.float32))
