@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU: builds the hand-written
 kernels, holds them against their plain PyTorch versions, takes a few
-SimpleViT-B/16 and Swin-T @224 bf16 train steps through them, and times
-kernels and steps.
+SimpleViT-B/16, Swin-T and LeViT-128S @224 bf16 train steps through them,
+and times kernels and steps.
 
-    python3 chip_smoke.py     # all phases; ~5 minutes on an H100
+    python3 chip_smoke.py     # all phases; ~2.5 minutes on an H100
 
 Phases, one line each (or a few):
   1. device   the card's name and power limit, as nvidia-smi reports them;
@@ -15,24 +15,40 @@ Phases, one line each (or a few):
               the main path's [256, 196, 2304], vanilla and robust (3, final);
               biased kernels against theirs at the four Swin-T stage shapes of
               a batch of 128 with their real window counts, swin_v2_t's N=64,
-              LeViT's [256, 4, 196, 16] (DV 32) and Twins' local
-              [8192, 8, 49, 64] with no bias, out, residual rows, dq, dk, dv
-              and dbias. float32: atol 1e-4, rtol 1e-3 (the sums run in
-              another order and the reverse chain amplifies it), dbias atol
-              1e-3 (a sum over up to 128 windows' gradients); bfloat16:
-              atol 2e-2 (one bf16 rounding of values of order one)
-  4. slice    small SimpleViT and Swin v1/v2 models, kernels against the
-              plain path; 5 AdamW steps (lr 1e-4, wd 0.05) of SimpleViT-B/16
-              bf16 on one fixed batch of 64, robust and vanilla, and the same
-              for Swin-T: finite, falling loss, and the launches per step of
-              each kernel (12 packed, SimpleViT; 12 biased robust, 0 vanilla,
-              Swin-T); one robust fwd+bwd of swin_v2_t bf16 at batch 32 (N=64)
-  5. timing   kernels against plain versions at [256, 196, 2304] (packed)
-              and [8192, 3, 49, 32], nW=64 (biased), with
-              scaled_dot_product_attention as the vanilla yardstick; the train
-              step of SimpleViT-B/16 at batch 256 and of Swin-T at batch 128
-              (median of 3 windows): img/s, MFU against 989 TFLOP/s dense bf16
-              and peak memory
+              LeViT's [256, 4, 196, 16] (DV 32), LeViT-256's stage 0
+              [64, 4, 196, 32] (DV 64, o/a and t1 in 32-column chunks) and
+              Twins' local [8192, 8, 49, 64] with no bias, out, residual
+              rows, dq, dk, dv and dbias; the square and rectangular
+              logits-interface Sinkhorn kernels against theirs at
+              LeViT-128S's and LeViT-256's subsample logits, deepvit's
+              [128, 8, 197, 197], 196×196 (nest_tiny's N), ragged shapes and
+              matrices held in a global scratch slot, out, residual rows and
+              d logits, three schedules. float32: atol 1e-4, rtol 1e-3 (the
+              sums run in another order and the reverse chain amplifies
+              it), dbias atol 1e-3 (a sum over up to 128 windows'
+              gradients); bfloat16: atol 2e-2 (one bf16 rounding of values
+              of order one), the Sinkhorn weights and d logits (of order
+              1/N) rtol 8e-3 (one bf16 ulp) and atol 1e-3/N
+  4. slice    small SimpleViT, Swin v1/v2 and LeViT models, kernels against
+              the plain path (LeViT in train mode, with its BN running
+              statistics); 5 AdamW steps (lr 1e-4, wd 0.05) on one fixed
+              batch of 64, robust and vanilla, of SimpleViT-B/16, Swin-T and
+              LeViT-128S bf16: finite, falling loss, and the launches per
+              step of each kernel (12 packed, SimpleViT; 12 biased robust, 0
+              vanilla, Swin-T; 9 biased and 2 rect robust, 0 vanilla,
+              LeViT-128S); one robust fwd+bwd of swin_v2_t bf16 at batch 32
+              (N=64) and of LeViT-256 bf16 at batch 64 (12 biased, stage 0
+              at DV 64 included, 2 rect, 0 square); robust_softmax fwd+bwd
+              on deepvit's square f32 logits [128, 8, 197, 197] (1 square
+              launch each way: no ported model runs the square kernel yet)
+  5. timing   kernels against plain versions at [256, 196, 2304] (packed),
+              [8192, 3, 49, 32], nW=64 (biased), with
+              scaled_dot_product_attention as the vanilla yardstick, and
+              [256, 8, 49, 196] (rect) and [128, 8, 197, 197] (square) f32
+              with torch.softmax as the vanilla counterpart; the train step of
+              SimpleViT-B/16 at batch 256, Swin-T at batch 128 and
+              LeViT-128S at batch 256 (median of 3 windows): img/s, MFU
+              against 989 TFLOP/s dense bf16 and peak memory
   6. profile  device time by op and kernel over one robust train step of
               each model (torch.profiler), the top rows
 Then the card line again, a {"kernels": [...]} JSON line, and as the last
@@ -215,9 +231,10 @@ def phase_biased_kernels(ba, torch, dev):
     """Biased kernels against their plain versions, every mode, float32 and
     bfloat16: at the four Swin-T stage shapes of a batch of 128 with their
     real window counts, swin_v2_t's N=64 (stages 0 and 3 at batch 32),
-    LeViT's [256, 4, 196, 16] with DV=32 and one per-head bias, and Twins'
-    local [8192, 8, 49, 64] with no bias. Returns the largest bfloat16
-    errors at the Swin-T stage shapes (fwd out; bwd dq, dk, dv, dbias)."""
+    LeViT's [256, 4, 196, 16] with DV=32 and one per-head bias, LeViT-256's
+    stage 0 [64, 4, 196, 32] with DV=64 (the backward forms o/a and t1 32
+    columns at a time), and Twins' local [8192, 8, 49, 64] with no bias.
+    Returns the largest bfloat16 errors at the Swin-T stage shapes (fwd out; bwd dq, dk, dv, dbias)."""
     worst = {"fwd": 0.0, "bwd": 0.0}
     rng = np.random.default_rng(10)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -226,6 +243,7 @@ def phase_biased_kernels(ba, torch, dev):
     cases += [("swin_v2_t stage 0", (1568, 3, 64, 32, 32), 49, False),
               ("swin_v2_t stage 3", (32, 24, 64, 32, 32), 1, False),
               ("levit", (256, 4, 196, 16, 32), 1, False),
+              ("levit_256 stage 0", (64, 4, 196, 32, 64), 1, False),
               ("twins local", (8192, 8, 49, 64, 64), 1, True)]
     names = ["out", "vecs", "dq", "dk", "dv", "dbias"]
     for label, (bw, h, n, d, dv), nw, no_bias in cases:
@@ -373,6 +391,29 @@ def phase_biased_times(ba, torch, dev, shape=SWIN_T_STAGES[0]):
     return times
 
 
+def phase_biased_levit_times(ba, torch, dev, shape=(64, 4, 196, 32, 64)):
+    """Biased kernels at LeViT-256's stage 0 in bf16, robust (3, final),
+    beside their plain versions: N=196 with DV=64, where the backward forms
+    o/a and t1 32 columns at a time. Log only."""
+    bw, h, n, d, dv = shape
+    rng = np.random.default_rng(14)
+    q, k = (torch.from_numpy(rng.standard_normal((bw, h, n, d), dtype=np.float32)).to(dev, torch.bfloat16)
+            for _ in range(2))
+    v, g = (torch.from_numpy(rng.standard_normal((bw, h, n, dv), dtype=np.float32)).to(dev, torch.bfloat16)
+            for _ in range(2))
+    bias = torch.from_numpy(rng.standard_normal((1, h, n, n), dtype=np.float32)).to(dev)
+    args = (d ** -0.5, True, 3, True, 1, False)
+    _, vecs = ba.biased_attention_fwd_cuda(q, k, v, bias, *args)
+    t = [cuda_ms(lambda: ba.biased_attention_fwd_cuda(q, k, v, bias, *args), 20),
+         cuda_ms(lambda: ba.biased_attention_fwd_plain(q, k, v, bias, *args), 5),
+         cuda_ms(lambda: ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs, *args), 20),
+         cuda_ms(lambda: ba.biased_attention_bwd_plain(q, k, v, bias, g, vecs, *args), 5)]
+    log(f"timing: biased attention bf16 LeViT-256 stage 0 [{bw},{h},{n},{d}] DV={dv} robust=1 "
+        f"(3, final) ms: fwd {t[0]:.4f} (plain {t[1]:.4f}) bwd {t[2]:.4f} (plain {t[3]:.4f})")
+    del q, k, v, g, bias, vecs
+    torch.cuda.empty_cache()
+
+
 def phase_small_model(torch, dev):
     """The model wiring through the kernels: a small float32 SimpleViT on the
     card (kernels) against the same weights on the CPU (plain versions)."""
@@ -402,35 +443,39 @@ def phase_small_model(torch, dev):
 def phase_train(counts, torch, dev, name, per_step, steps=5, batch=64):
     """`steps` AdamW steps (lr 1e-4, wd 0.05) of `name` bf16 at full width on
     one fixed batch, robust then vanilla: finite, falling loss, and
-    `per_step[robust]` launches per step of each kernel that `counts`
-    counts. Returns the launches of both runs together."""
+    `per_step[robust][k]` launches per step of each kernel that `counts[k]`
+    counts. Returns the launches of both runs together, by counter."""
     from noise_robust_vit_tpu_torch import create_model
     from noise_robust_vit_tpu_torch.train import create_train_state
 
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal((batch, 224, 224, 3), dtype=np.float32)).to(dev, torch.bfloat16)
     y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
-    total = {"fwd": 0, "bwd": 0}
+    total = {k: {"fwd": 0, "bwd": 0} for k in counts}
     for robust in (True, False):
         model = create_model(name, num_classes=1000, image_size=224, robust=robust,
                              dtype=torch.bfloat16, device=dev, seed=0)
         state = create_train_state(model, lr=1e-4, weight_decay=0.05)
         losses, launches = [], []
         for _ in range(steps):
-            counts.reset()
+            for c in counts.values():
+                c.reset()
             losses.append(float(state.train_step(x, y)))
-            launches.append((counts.fwd, counts.bwd))
+            launches.append({k: (c.fwd, c.bwd) for k, c in counts.items()})
         log(f"slice: {name} bf16 robust={int(robust)} batch={batch} "
-            f"losses={[round(v, 5) for v in losses]} launches (fwd, bwd) per step={launches}")
+            f"losses={[round(v, 5) for v in losses]} launches (fwd, bwd) per step="
+            + ", ".join(f"{k} {[step[k] for step in launches]}" for k in counts))
         if not all(math.isfinite(v) for v in losses):
             raise RuntimeError(f"non-finite loss: {losses}")
         if not losses[-1] < losses[0]:
             raise RuntimeError(f"loss did not fall: {losses}")
-        want = per_step[robust]
-        if any(step != (want, want) for step in launches):
-            raise RuntimeError(f"expected {want} launches of each kernel per step, got {launches}")
-        total["fwd"] += sum(f for f, _ in launches)
-        total["bwd"] += sum(b for _, b in launches)
+        for k in counts:
+            want = per_step[robust][k]
+            if any(step[k] != (want, want) for step in launches):
+                raise RuntimeError(f"expected {want} launches of each {k} kernel per step, "
+                                   f"got {[step[k] for step in launches]}")
+            total[k]["fwd"] += sum(step[k][0] for step in launches)
+            total[k]["bwd"] += sum(step[k][1] for step in launches)
         del model, state
     torch.cuda.empty_cache()
     return total
@@ -456,6 +501,248 @@ def phase_swin_v2(ba, torch, dev, batch=32):
         raise RuntimeError("swin_v2_t: non-finite loss or not 12 launches of each kernel")
     del model
     torch.cuda.empty_cache()
+
+
+# The logits-interface kernels' checked shapes: LeViT-128S's subsample
+# logits at batch 256, LeViT-256's at batch 64, deepvit's square logits at
+# batch 128 (tools/dispatch_audit.jsonl), 196×196 at 3 and 4 heads
+# (nest_tiny's N), ragged ones (rows not a multiple of 4, nr > nc), and
+# matrices held in a global scratch slot (N above ~220)
+SQUARE_PATH = (128, 8, 197, 197)
+SINKHORN_SHAPES = [("levit_128s sub0", (256, 8, 49, 196)), ("levit_128s sub1", (256, 16, 16, 49)),
+                   ("levit_256 sub0", (64, 8, 49, 196)), ("levit_256 sub1", (64, 12, 16, 49)),
+                   ("deepvit", SQUARE_PATH), ("square 196", (64, 4, 196, 196)),
+                   ("square 196", (64, 3, 196, 196)),
+                   ("ragged", (8, 3, 45, 45)), ("ragged", (8, 3, 33, 7)),
+                   ("scratch", (4, 2, 640, 640)), ("scratch", (8, 300, 96))]
+SINKHORN_MAIN = {"square": "deepvit", "rect": "levit_128s"}
+
+
+def sinkhorn_pairs(ss, torch, logits, g, iters, final_row):
+    """(kernel, plain) results of the square or rectangular kernels on the
+    same inputs: out, the residual rows, d logits."""
+    if logits.shape[-1] == logits.shape[-2]:
+        out_k, vecs_k = ss.sinkhorn_softmax_fwd_cuda(logits, iters, final_row)
+        got = (out_k, vecs_k, ss.sinkhorn_softmax_bwd_cuda(logits, g, vecs_k, iters, final_row))
+        torch.cuda.synchronize()
+        out_p, vecs_p = ss.sinkhorn_softmax_fwd_plain(logits, iters, final_row)
+        want = (out_p, vecs_p, ss.sinkhorn_softmax_bwd_plain(logits, g, vecs_p, iters, final_row))
+        return ["out", "vecs", "ds"], got, want
+    out_k, va_k, vb_k = ss.sinkhorn_softmax_rect_fwd_cuda(logits, iters, final_row)
+    got = (out_k, va_k, vb_k, ss.sinkhorn_softmax_rect_bwd_cuda(logits, g, va_k, vb_k, iters,
+                                                                final_row))
+    torch.cuda.synchronize()
+    out_p, va_p, vb_p = ss.sinkhorn_softmax_rect_fwd_plain(logits, iters, final_row)
+    want = (out_p, va_p, vb_p, ss.sinkhorn_softmax_rect_bwd_plain(logits, g, va_p, vb_p, iters,
+                                                                   final_row))
+    return ["out", "va", "vb", "ds"], got, want
+
+
+def phase_sinkhorn_kernels(ss, torch, dev):
+    """Square and rectangular logits-interface kernels against their plain
+    versions at SINKHORN_SHAPES, the three Sinkhorn schedules of MODES (the
+    kernels have no vanilla mode: plain softmax stays torch.softmax),
+    float32 and bfloat16: out, residual rows and d logits. float32: atol
+    1e-4, rtol 1e-3 (the sums run in another order and the reverse chain
+    amplifies it); bfloat16: the weights and d logits, of order 1/N for N
+    columns, to one bf16 ulp (rtol 8e-3) and atol 1e-3/N, the float32
+    residual rows atol and rtol 1e-3. Returns the largest float32 errors (the main path's dtype)
+    at the main path's shapes, by kernel and direction."""
+    worst = {(kind, d): 0.0 for kind in ("square", "rect") for d in ("fwd", "bwd")}
+    rng = np.random.default_rng(20)
+    f32, bf16 = torch.float32, torch.bfloat16
+    modes = [m[1:] for m in MODES if m[0]]
+    for label, shape in SINKHORN_SHAPES:
+        kind = "square" if shape[-1] == shape[-2] else "rect"
+        s32 = torch.from_numpy(2 * rng.standard_normal(shape, dtype=np.float32)).to(dev)
+        g32 = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+        for dtype in (f32, bf16):
+            logits, g = s32.to(dtype), g32.to(dtype)
+            for iters, final_row in modes:
+                names, got, want = sinkhorn_pairs(ss, torch, logits, g, iters, final_row)
+                torch.cuda.synchronize()
+                errs = {nm: (a.float() - b.float()).abs().max().item()
+                        for nm, a, b in zip(names, got, want)}
+                log(f"kernels: sinkhorn_softmax {kind} {label} {str(dtype).split('.')[1]} "
+                    f"{list(shape)} iters={iters} final_row={int(final_row)} max_abs_err "
+                    + " ".join(f"{nm}={e:.3g}" for nm, e in errs.items()))
+                for nm, a, b in zip(names, got, want):
+                    if dtype == f32:
+                        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=nm)
+                    elif nm in ("out", "ds"):
+                        torch.testing.assert_close(a.float(), b.float(),
+                                                   atol=1e-3 / shape[-1], rtol=8e-3, msg=nm)
+                    else:
+                        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3, msg=nm)
+                if dtype == f32 and label.startswith(SINKHORN_MAIN[kind]):
+                    worst[kind, "fwd"] = max(worst[kind, "fwd"], errs["out"])
+                    worst[kind, "bwd"] = max(worst[kind, "bwd"], errs["ds"])
+                del got, want
+        del s32, g32, logits, g
+        torch.cuda.empty_cache()
+    return worst
+
+
+LEVIT_SMALL = dict(img_size=112, patch_size=16, num_classes=10, embed_dim=(32, 48, 64),
+                   key_dim=(16, 16, 16), depth=(1, 1, 1), num_heads=(2, 3, 4),
+                   attn_ratio=(2, 2, 2), mlp_ratio=(2, 2, 2),
+                   down_ops=(("Subsample", 16, 2, 4, 2, 2), ("Subsample", 16, 3, 4, 2, 2)))
+
+
+def phase_small_levit(ba, ss, torch, dev):
+    """The LeViT wiring through the kernels: a small robust float32 LeViT
+    (image 112, embed (32, 48, 64), key dim 16, heads (2, 3, 4), depth 1 a
+    stage) on the card against the same weights on the CPU, in train mode:
+    logits, every parameter gradient and the BN running statistics after the
+    step. Every parameter is perturbed from a seed, so that no branch is
+    zero (the init's zero BN scales). 3 biased and 2 rectangular launches of
+    each direction on the card, none on the CPU. The attention-bias tables'
+    gradients are scattered back by index_put with atomics on the card, so
+    they repeat only to rounding; the tolerance covers it."""
+    from noise_robust_vit_tpu_torch import LeViT
+
+    gen = torch.Generator().manual_seed(21)
+    cpu = LeViT(robust=True, device="cpu", **LEVIT_SMALL)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    gpu = LeViT(robust=True, device=dev, **LEVIT_SMALL)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.standard_normal((4, 112, 112, 3), dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, size=4))
+    outs = []
+    for model, xx, yy in ((cpu, x, y), (gpu, x.to(dev), y.to(dev))):
+        model.train()
+        ba.launches.reset()
+        ss.launches_rect.reset()
+        logits = model(xx)
+        torch.nn.functional.cross_entropy(logits.float(), yy).backward()
+        outs.append((logits.detach().cpu(),
+                     {k: p.grad.cpu() for k, p in model.named_parameters()},
+                     {k: b.cpu() for k, b in model.named_buffers() if k.endswith(("mean", "var"))},
+                     (ba.launches.fwd, ba.launches.bwd, ss.launches_rect.fwd,
+                      ss.launches_rect.bwd)))
+    if outs[0][3] != (0, 0, 0, 0) or outs[1][3] != (3, 3, 2, 2):
+        raise RuntimeError(f"small levit: launches (biased fwd, bwd, rect fwd, bwd) cpu "
+                           f"{outs[0][3]}, card {outs[1][3]}, expected 0s and (3, 3, 2, 2)")
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-3)
+    for i in (1, 2):
+        for k, v in outs[0][i].items():
+            torch.testing.assert_close(outs[1][i][k], v, atol=1e-4, rtol=1e-3, msg=k)
+    err = max((outs[1][1][k] - g).abs().max().item() for k, g in outs[0][1].items())
+    err_bn = max((outs[1][2][k] - v).abs().max().item() for k, v in outs[0][2].items())
+    log(f"slice: small LeViT f32 robust train mode card vs cpu: logits, grads and BN "
+        f"running stats agree (max grad err {err:.3g}, stats {err_bn:.3g}), launches "
+        f"biased 3/3, rect 2/2 on the card, 0 on the cpu")
+
+
+def phase_levit_256(ba, ss, torch, dev, batch=64):
+    """One robust fwd+bwd of LeViT-256 bf16: all twelve square attentions
+    run the biased kernels, stage 0's at N=196 with DV=64 included, as in
+    the JAX package, and the two subsamples the rectangular ones; no square
+    logits reach the square kernel."""
+    from noise_robust_vit_tpu_torch import create_model
+
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.standard_normal((batch, 224, 224, 3), dtype=np.float32)).to(dev, torch.bfloat16)
+    y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
+    model = create_model("LeViT_256", num_classes=1000, robust=True, dtype=torch.bfloat16,
+                         device=dev, seed=0)
+    counts = {"square": ss.launches, "biased": ba.launches, "rect": ss.launches_rect}
+    for c in counts.values():
+        c.reset()
+    loss = torch.nn.functional.cross_entropy(model(x).float(), y)
+    loss.backward()
+    loss = loss.item()
+    got = {k: (c.fwd, c.bwd) for k, c in counts.items()}
+    log(f"slice: LeViT_256 bf16 robust batch={batch} fwd+bwd loss={loss:.5f} "
+        f"launches (fwd, bwd) {got}")
+    want = {"square": (0, 0), "biased": (12, 12), "rect": (2, 2)}
+    if not math.isfinite(loss) or got != want:
+        raise RuntimeError(f"LeViT_256: non-finite loss or launches {got}, expected {want}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_square_path(ss, torch, dev, shape=SQUARE_PATH):
+    """The square kernels' path: ``ops.robust_softmax`` forward and backward
+    on deepvit's float32 square logits (tools/dispatch_audit.jsonl), the
+    call that deepvit, rvt, nest and cct make and that Swin's robust
+    fallback makes; no ported model reaches it yet. One launch of each
+    kernel, finite weights whose rows sum to one (the final row norm), and
+    the gradient's shape. Returns the launches."""
+    from noise_robust_vit_tpu_torch import ops
+
+    rng = np.random.default_rng(25)
+    logits = torch.from_numpy(2 * rng.standard_normal(shape, dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+    logits.requires_grad_(True)
+    ss.launches.reset()
+    out = ops.robust_softmax(logits, robust=True)
+    out.backward(g)
+    torch.cuda.synchronize()
+    got = (ss.launches.fwd, ss.launches.bwd)
+    rows = out.detach().sum(-1)
+    err = (rows - 1).abs().max().item()
+    log(f"slice: robust_softmax f32 {list(shape)} fwd+bwd: square launches (fwd, bwd) "
+        f"{got}, max |row sum - 1| {err:.3g}")
+    if got != (1, 1) or not torch.isfinite(out).all() or err > 1e-4 \
+            or logits.grad is None or logits.grad.shape != logits.shape \
+            or not torch.isfinite(logits.grad).all():
+        raise RuntimeError(f"square path: launches {got}, row sum error {err}")
+    del logits, g, out
+    torch.cuda.empty_cache()
+    return {"fwd": got[0], "bwd": got[1]}
+
+
+def phase_sinkhorn_times(ss, torch, dev):
+    """Square and rectangular kernels in float32 (the dtype the models pass)
+    at [256, 8, 49, 196] (LeViT-128S subsample 0) and [128, 8, 197, 197]
+    (deepvit), robust (3, final), beside their plain versions and
+    torch.softmax forward and backward on the same logits (the vanilla
+    model's cost for the same step, not a library yardstick: no PyTorch
+    call computes softmax + Sinkhorn, so library_ms is null). Each bound
+    comes from these inputs: the bytes each direction must move once, and
+    its float32 passes over the matrix."""
+    rng = np.random.default_rng(24)
+    times = {}
+    fp, bp, nt = chain_passes(True, 3, True)
+    for kind, shape in (("rect", (256, 8, 49, 196)), ("square", SQUARE_PATH)):
+        logits = torch.from_numpy(2 * rng.standard_normal(shape, dtype=np.float32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+        if kind == "square":
+            fwd_k = lambda: ss.sinkhorn_softmax_fwd_cuda(logits)  # noqa: E731
+            fwd_p = lambda: ss.sinkhorn_softmax_fwd_plain(logits)  # noqa: E731
+            res = fwd_k()[1:]
+            bwd_k = lambda: ss.sinkhorn_softmax_bwd_cuda(logits, g, *res)  # noqa: E731
+            bwd_p = lambda: ss.sinkhorn_softmax_bwd_plain(logits, g, *res)  # noqa: E731
+        else:
+            fwd_k = lambda: ss.sinkhorn_softmax_rect_fwd_cuda(logits)  # noqa: E731
+            fwd_p = lambda: ss.sinkhorn_softmax_rect_fwd_plain(logits)  # noqa: E731
+            res = fwd_k()[1:]
+            bwd_k = lambda: ss.sinkhorn_softmax_rect_bwd_cuda(logits, g, *res)  # noqa: E731
+            bwd_p = lambda: ss.sinkhorn_softmax_rect_bwd_plain(logits, g, *res)  # noqa: E731
+        t = {"fwd": cuda_ms(fwd_k, 20), "fwd_plain": cuda_ms(fwd_p, 5),
+             "bwd": cuda_ms(bwd_k, 20), "bwd_plain": cuda_ms(bwd_p, 5),
+             "fwd_lib": None, "bwd_lib": None}
+        sm_fwd = cuda_ms(lambda: torch.softmax(logits, -1), 20)
+        xs = logits.detach().requires_grad_(True)
+        out = torch.softmax(xs, -1)
+        sm_bwd = cuda_ms(lambda: torch.autograd.grad(out, xs, g, retain_graph=True), 20)
+        mat, vec = logits.numel() * 4, sum(r.numel() for r in res) * 4
+        nn = logits.numel()
+        t["fwd_bound"], t["fwd_by"] = bound_ms(2 * mat + vec, 0, nn * (4 + 2 * fp))
+        t["bwd_bound"], t["bwd_by"] = bound_ms(3 * mat + vec, 0, nn * (3 + 2 * bp + 4 + 2 * nt))
+        times[kind] = t
+        log(f"timing: sinkhorn_softmax {kind} f32 {list(shape)} (3, final) ms: fwd "
+            f"{t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, bound {t['fwd_bound']:.4f} "
+            f"{t['fwd_by']}) bwd {t['bwd']:.4f} (plain {t['bwd_plain']:.4f}, bound "
+            f"{t['bwd_bound']:.4f} {t['bwd_by']}); vanilla counterpart torch.softmax fwd "
+            f"{sm_fwd:.4f} bwd {sm_bwd:.4f}")
+        del logits, g, res, xs, out
+    torch.cuda.empty_cache()
+    return times
 
 
 def phase_kernel_times(pa, torch, dev, b=256, n=196, h=12, d=64):
@@ -577,6 +864,7 @@ def main() -> int:
     from noise_robust_vit_tpu_torch.ops.cuda import biased_attention as ba
     from noise_robust_vit_tpu_torch.ops.cuda import build
     from noise_robust_vit_tpu_torch.ops.cuda import packed_attention as pa
+    from noise_robust_vit_tpu_torch.ops.cuda import sinkhorn_softmax as ss
 
     t0 = time.perf_counter()
     lib_path = build.build()
@@ -585,25 +873,45 @@ def main() -> int:
 
     worst = phase_kernels(pa, torch, dev)
     worst_b = phase_biased_kernels(ba, torch, dev)
+    worst_s = phase_sinkhorn_kernels(ss, torch, dev)
     torch.cuda.synchronize()
     phase_small_model(torch, dev)
     phase_small_swin(ba, torch, dev)
+    phase_small_levit(ba, ss, torch, dev)
     torch.cuda.synchronize()
-    counts = phase_train(pa.launches, torch, dev, "simple_vit_b16", {True: 12, False: 12})
-    counts_b = phase_train(ba.launches, torch, dev, "swin_t", {True: 12, False: 0})
+    counts = phase_train({"packed": pa.launches}, torch, dev, "simple_vit_b16",
+                         {True: {"packed": 12}, False: {"packed": 12}})["packed"]
+    counts_b = phase_train({"biased": ba.launches}, torch, dev, "swin_t",
+                           {True: {"biased": 12}, False: {"biased": 0}})["biased"]
     phase_swin_v2(ba, torch, dev)
+    levit_counts = {"biased": ba.launches, "rect": ss.launches_rect, "square": ss.launches}
+    counts_l = phase_train(levit_counts, torch, dev, "levit",
+                           {True: {"biased": 9, "rect": 2, "square": 0},
+                            False: {"biased": 0, "rect": 0, "square": 0}})
+    phase_levit_256(ba, ss, torch, dev)
+    counts_sq = phase_square_path(ss, torch, dev)
     torch.cuda.synchronize()
     ktimes = phase_kernel_times(pa, torch, dev)
     btimes = phase_biased_times(ba, torch, dev)
+    phase_biased_levit_times(ba, torch, dev)
+    stimes = phase_sinkhorn_times(ss, torch, dev)
     torch.cuda.synchronize()
     phase_step_times(torch, dev, "simple_vit_b16", 256, vit_train_flops_per_image())
     macs = swin_fwd_macs_per_image()
     log(f"timing: swin_t forward {macs / 1e9:.4f} GMACs per image (torchvision "
         f"publishes 4.49 GFLOPS, counted as multiply-adds)")
     phase_step_times(torch, dev, "swin_t", 128, 3 * 2 * macs)
+    from noise_robust_vit_tpu_torch import create_model
+    from noise_robust_vit_tpu_torch.models.levit import levit_macs_per_image
+
+    macs_l = levit_macs_per_image(create_model("levit", num_classes=1000, device="meta"))
+    log(f"timing: LeViT_128S forward {macs_l / 1e6:.4f} M MACs per image (the LeViT paper "
+        f"publishes 305 M FLOPs, counted as multiply-adds; gap {macs_l / 305e6 - 1:+.4%})")
+    phase_step_times(torch, dev, "levit", 256, 3 * 2 * macs_l)
     torch.cuda.synchronize()
     phase_profile(torch, dev, "simple_vit_b16", 256)
     phase_profile(torch, dev, "swin_t", 128)
+    phase_profile(torch, dev, "levit", 256)
 
     kernels = [
         kernel_entry("packed_attention_fwd", "packed_attention_fwd.cu", "block_attention.py:234",
@@ -614,6 +922,16 @@ def main() -> int:
                      counts_b["fwd"], worst_b["fwd"], btimes[True], "fwd"),
         kernel_entry("biased_attention_bwd", "biased_attention_bwd.cu", "biased_attention.py:296",
                      counts_b["bwd"], worst_b["bwd"], btimes[True], "bwd"),
+        kernel_entry("sinkhorn_softmax_fwd", "sinkhorn_softmax_fwd.cu", "sinkhorn_softmax.py:229",
+                     counts_sq["fwd"], worst_s["square", "fwd"], stimes["square"], "fwd"),
+        kernel_entry("sinkhorn_softmax_bwd", "sinkhorn_softmax_bwd.cu", "sinkhorn_softmax.py:266",
+                     counts_sq["bwd"], worst_s["square", "bwd"], stimes["square"], "bwd"),
+        kernel_entry("sinkhorn_softmax_rect_fwd", "sinkhorn_softmax_fwd.cu",
+                     "sinkhorn_softmax.py:497", counts_l["rect"]["fwd"], worst_s["rect", "fwd"],
+                     stimes["rect"], "fwd"),
+        kernel_entry("sinkhorn_softmax_rect_bwd", "sinkhorn_softmax_bwd.cu",
+                     "sinkhorn_softmax.py:537", counts_l["rect"]["bwd"], worst_s["rect", "bwd"],
+                     stimes["rect"], "bwd"),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

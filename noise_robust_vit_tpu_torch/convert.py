@@ -1,7 +1,8 @@
-"""Weight bridge: a JAX (flax) parameter tree → the port's ``state_dict``.
+"""Weight bridge: a JAX (flax) variable tree → the port's ``state_dict``.
 
 The tree arrives as nested dicts of numpy arrays (``model.init(...)`` pulled
-through ``jax.device_get``), optionally under a top-level ``"params"`` key.
+through ``jax.device_get``): the parameters alone, or the variables
+``{"params": ..., "batch_stats": ...}`` of a model with BatchNorm.
 Paths map by name, because the port's modules carry the flax names
 (``transformer/layers_0_attn/to_qkv/kernel`` →
 ``transformer.layers_0_attn.to_qkv.weight``):
@@ -10,11 +11,13 @@ Paths map by name, because the port's modules carry the flax names
   (also inside Swin v2's ``cpb_fc1`` / ``cpb_fc2``);
 * a Conv ``kernel`` HWIO ``[kh, kw, in, out]`` becomes torch's OIHW
   ``[out, in, kh, kw]``;
-* a LayerNorm ``scale`` becomes ``weight``;
+* a LayerNorm or BatchNorm ``scale`` becomes ``weight``;
 * a ``bias`` stays ``bias``;
+* a BatchNorm's ``batch_stats`` ``mean`` and ``var`` become the buffers
+  ``running_mean`` and ``running_var``;
 * any other named leaf is a parameter of the module itself and keeps its
   name and layout (Swin's ``relative_position_bias_table``, v2's
-  ``qkv_bias`` and ``logit_scale``).
+  ``qkv_bias`` and ``logit_scale``, LeViT's ``attention_biases``).
 
 Only numpy is needed on the way in, so this imports where JAX is absent.
 """
@@ -41,11 +44,19 @@ def _flatten_tree(tree: Mapping, prefix: tuple[str, ...] = ()) -> dict[tuple[str
     return out
 
 
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
 def convert_params(params: Mapping) -> dict[str, torch.Tensor]:
-    """Map a flax parameter tree onto the port's ``state_dict`` names."""
-    if set(params) == {"params"}:
-        params = params["params"]
+    """Map a flax parameter tree, or a ``{"params", "batch_stats"}``
+    variable tree, onto the port's ``state_dict`` names."""
     state = {}
+    if set(params) <= {"params", "batch_stats"} and "params" in params:
+        for path, value in _flatten_tree(params.get("batch_stats", {})).items():
+            *module, leaf = path
+            state[".".join([*module, _STATS[leaf]])] = torch.tensor(
+                np.ascontiguousarray(value, dtype=np.float32))
+        params = params["params"]
     for path, value in _flatten_tree(params).items():
         *module, leaf = path
         name = leaf

@@ -1,7 +1,8 @@
 """Architecture registry: name → constructor (counterpart of
 ``noise_robust_vit_tpu/models/factory.py``; the port's entries so far are
-``simple_vit``, ``simple_vit_b16`` and the Swin v1/v2 builders). Every entry
-accepts ``(num_classes, image_size, robust, dtype, device)``.
+``simple_vit``, ``simple_vit_b16``, the Swin v1/v2 builders and the LeViT
+builders, with ``levit`` for LeViT-128S). Every entry accepts
+``(num_classes, image_size, robust, dtype, device)``.
 ``create_model`` builds on the card unless ``device`` names another (it
 raises when there is no card), draws the initial weights from a
 ``torch.Generator`` seeded with ``seed``, and gives the stochastic-depth
@@ -15,7 +16,7 @@ from typing import Callable
 import torch
 
 from ..utils import resolve_device
-from . import swin
+from . import levit, swin
 from .layers import DropPath, init_params
 from .simple_vit import SimpleViT
 
@@ -82,3 +83,6 @@ def _simple_vit_b16(num_classes, image_size, robust, dtype, device=None, **kw):
 
 for _name in ("swin_t", "swin_s", "swin_b", "swin_v2_t", "swin_v2_s", "swin_v2_b"):
     register_model(_name)(getattr(swin, _name))
+for _name in ("LeViT_128S", "LeViT_128", "LeViT_192", "LeViT_256", "LeViT_384"):
+    register_model(_name)(getattr(levit, _name))
+register_model("levit")(levit.LeViT_128S)  # the fork's arch switch name

@@ -18,8 +18,8 @@ from torch import nn
 from .. import ops
 from ..utils import lecun_normal_init, zeros_init
 
-__all__ = ["Attention", "Dense", "DropPath", "FeedForward", "LayerNorm",
-           "PatchConv", "PatchEmbed", "Transformer", "init_params"]
+__all__ = ["Attention", "BatchNorm", "Conv", "Dense", "DropPath", "FeedForward",
+           "LayerNorm", "PatchConv", "PatchEmbed", "Transformer", "init_params"]
 
 
 class Dense(nn.Linear):
@@ -54,6 +54,89 @@ class LayerNorm(nn.LayerNorm):
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
                          self.bias, self.eps)
         return y.to(self.compute_dtype)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over the last axis (``[..., C]``), which is not
+    ``nn.BatchNorm2d``: the statistics are computed in float32 whatever the
+    dtype, the variance as E[x²] − E[x]² clipped at 0 (flax's fast variance),
+    and in training mode the running averages move as
+    ``0.99·old + 0.01·batch`` with the *biased* batch variance. eps 1e-5.
+    ``weight`` and ``bias`` are flax's ``scale`` and ``bias``; the buffers
+    ``running_mean`` and ``running_var`` its ``batch_stats`` ``mean`` and
+    ``var``. There is no ``num_batches_tracked``. The output is cast to
+    ``dtype``."""
+
+    momentum = 0.99
+    eps = 1e-5
+
+    def __init__(self, features: int, scale_init: float = 1.0,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.scale_init = scale_init
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, device=device))
+        self.bias = nn.Parameter(torch.empty(features, device=device))
+        self.register_buffer("running_mean", torch.empty(features, device=device))
+        self.register_buffer("running_var", torch.empty(features, device=device))
+        with torch.no_grad():
+            self.init_own_params(None)
+
+    def init_own_params(self, generator: torch.Generator | None) -> None:
+        self.weight.fill_(self.scale_init)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            dims = tuple(range(x.ndim - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp_min((xf * xf).mean(dims) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(self.compute_dtype)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` (lecun-normal kernel unless ``kernel_init`` names
+    another, zero bias) over NHWC images, with a stride and flax's explicit
+    symmetric padding (an int ``padding`` pads every spatial side by it);
+    NHWC out. The weight is kept OIHW, as torch's convolutions keep it.
+    Inside, the NHWC tensor is viewed as a channels-last NCHW one, so the
+    layout changes cost no copy."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int | tuple[int, int], stride: int | tuple[int, int] = 1,
+                 padding: int = 0, dtype: torch.dtype = torch.float32, device=None,
+                 kernel_init: Callable | None = None):
+        super().__init__()
+        kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
+        self.stride, self.padding = stride, padding
+        self.compute_dtype = dtype
+        self.kernel_init = kernel_init or lecun_normal_init()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kh, kw,
+                                               device=device))
+        self.bias = nn.Parameter(torch.empty(out_channels, device=device))
+        with torch.no_grad():
+            self.init_own_params(None)
+
+    def init_own_params(self, generator: torch.Generator | None) -> None:
+        # the init reads fans from a Dense-shaped [out, kh·kw·in] view
+        self.kernel_init(self.weight.view(self.weight.shape[0], -1), generator)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt),
+                     self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
 
 
 @torch.no_grad()
@@ -188,30 +271,21 @@ class PatchEmbed(nn.Module):
         return x
 
 
-class PatchConv(nn.Module):
-    """A convolution whose stride equals its kernel (flax ``nn.Conv`` with
+class PatchConv(Conv):
+    """A ``Conv`` whose stride equals its kernel (flax ``nn.Conv`` with
     ``strides=kernel_size``, SAME padding, on an input that is a multiple of
-    the kernel, so no padding) over NHWC images: each patch, flattened in
-    (p1, p2, c) order, goes through one Dense. The weight is kept OIHW, as
-    torch's convolutions keep it; ``forward`` reads it as ``[out, ph·pw·c]``."""
+    the kernel, so no padding): the same parameters and init, but ``forward``
+    sends each patch, flattened in (p1, p2, c) order, through one Dense over
+    the weight read as ``[out, ph·pw·c]``. Swin's patch embedding uses it; it
+    keeps the products that its checks against the JAX package were made
+    with."""
 
     def __init__(self, channels: int, dim: int, patch_size: tuple[int, int],
                  dtype: torch.dtype = torch.float32, device=None,
                  kernel_init: Callable | None = None):
-        super().__init__()
-        ph, pw = patch_size
-        self.patch_size = patch_size
-        self.compute_dtype = dtype
-        self.kernel_init = kernel_init or lecun_normal_init()
-        self.weight = nn.Parameter(torch.empty(dim, channels, ph, pw, device=device))
-        self.bias = nn.Parameter(torch.empty(dim, device=device))
-        with torch.no_grad():
-            self.init_own_params(None)
-
-    def init_own_params(self, generator: torch.Generator) -> None:
-        # the init reads fans from a Dense-shaped [out, ph·pw·c] view
-        self.kernel_init(self.weight.view(self.weight.shape[0], -1), generator)
-        self.bias.zero_()
+        super().__init__(channels, dim, tuple(patch_size), stride=tuple(patch_size),
+                         dtype=dtype, device=device, kernel_init=kernel_init)
+        self.patch_size = tuple(patch_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1], x.shape[2]

@@ -12,18 +12,21 @@ import torch
 from torch import nn
 
 from ..ops import posemb_sincos_2d
-from ..utils import pair
+from ..utils import pair, resolve_device
 from .layers import Dense, LayerNorm, PatchEmbed, Transformer
 
 __all__ = ["SimpleViT"]
 
 
 class SimpleViT(nn.Module):
+    """On the card unless ``device`` says otherwise."""
+
     def __init__(self, image_size, patch_size, num_classes: int, dim: int,
                  depth: int, heads: int, mlp_dim: int, channels: int = 3,
                  dim_head: int = 64, robust: bool = False,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        device = resolve_device(device)
         ih, iw = pair(image_size)
         ph, pw = pair(patch_size)
         if ih % ph or iw % pw:

@@ -270,7 +270,7 @@ class PatchMerging(nn.Module):
 
 
 class SwinTransformer(nn.Module):
-    """(ref swin.py:584-726.)"""
+    """(ref swin.py:584-726.) On the card unless ``device`` says otherwise."""
 
     def __init__(self, patch_size: Sequence[int], embed_dim: int, depths: Sequence[int],
                  num_heads: Sequence[int], window_size: Sequence[int],
@@ -279,6 +279,7 @@ class SwinTransformer(nn.Module):
                  num_classes: int = 1000, robust: bool = False, version: int = 1,
                  channels: int = 3, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.depths = tuple(depths)
         trunc = trunc_normal_init(0.02)
         self.patch_embed = PatchConv(channels, embed_dim, tuple(patch_size), dtype=dtype,
@@ -323,7 +324,7 @@ def _swin(patch, embed, depths, heads, window, sd, version, *, device=None, **kw
     kw.pop("image_size", None)  # any size works; accepted for the factory
     return SwinTransformer(patch_size=patch, embed_dim=embed, depths=depths,
                            num_heads=heads, window_size=window, stochastic_depth_prob=sd,
-                           version=version, device=resolve_device(device), **kw)
+                           version=version, device=device, **kw)
 
 
 def swin_t(**kw):

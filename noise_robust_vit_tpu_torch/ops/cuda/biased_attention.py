@@ -43,11 +43,13 @@ __all__ = [
 
 # Gate. Each (window, head) matrix lives in one block's shared memory, so N
 # is bounded by what the backward holds there (csrc/biased_attention_bwd.cu:
-# the N×N matrix, the GEMM tiles, the scaling vectors and o/a, t1 [N, DV]),
-# which must fit the 227 KB a block may use on Hopper. Head widths are
-# multiples of 8, as in the JAX gate, up to 128. N ≤ 196 and iters ≤ 8 are
-# the checked cases: Swin (49, 64), MaxViT (49), Twins local (49, D 64) and
-# LeViT's 196 (D 16, DV 32), which fits for iters ≤ 4 only.
+# the N×N matrix, the GEMM tiles, the scaling vectors and o/a, t1 [N, DVC],
+# DVC = DV or, where that does not fit, 32 columns at a time), which must
+# fit the 227 KB a block may use on Hopper. Head widths are multiples of 8,
+# as in the JAX gate, up to 128. N ≤ 196 and iters ≤ 8 are the checked
+# cases: Swin (49, 64), MaxViT (49), Twins local (49, D 64) and LeViT's 196
+# (D 16, DV 32; and D 32, DV 64 in column chunks), which fits for iters ≤ 4
+# only.
 MAX_N = 196
 MAX_DIM = 128
 MAX_ITERS = 8
@@ -65,11 +67,20 @@ _BWD_BLOCKS_PER_SM = 8
 launches = LaunchCounts()
 
 
-def _bwd_smem_bytes(n: int, dv: int, iters: int, ka: int) -> int:
+def _bwd_smem_bytes(n: int, dvc: int, iters: int, ka: int) -> int:
     """``biased_bwd_smem_bytes`` in csrc, plus the static shared memory."""
     head = (1 + ka + iters + 2) * n
-    region = max((3 + 2 * iters) * n, 2 * n * dv)
+    region = max((3 + 2 * iters) * n, 2 * n * dvc)
     return 4 * (n * ((n + 3) // 4 * 4) + _GEMM_SMEM_FLOATS + head + region) + _STATIC_SMEM
+
+
+def _dv_chunk(n: int, dv: int, iters: int, ka: int) -> int:
+    """``biased_bwd_dv_chunk`` in csrc: the o/a and t1 columns the backward
+    forms at a time, DV or 32; 0 when neither fits."""
+    for dvc in (dv, 32):
+        if dv % dvc == 0 and _bwd_smem_bytes(n, dvc, iters, ka) <= _SMEM_LIMIT:
+            return dvc
+    return 0
 
 
 def biased_attention_supported(bw: int, heads: int, n: int, d: int, dv: int,
@@ -82,7 +93,7 @@ def biased_attention_supported(bw: int, heads: int, n: int, d: int, dv: int,
         return False
     if any(x % 8 or not 8 <= x <= MAX_DIM for x in (d, dv)):
         return False
-    return _bwd_smem_bytes(n, dv, sinkhorn_iters, sinkhorn_iters) <= _SMEM_LIMIT
+    return _dv_chunk(n, dv, sinkhorn_iters, sinkhorn_iters) > 0
 
 
 # --------------------------------------------------------------------------

@@ -50,6 +50,17 @@ _ENTRIES = {
         # N, D, DV, nW, scale, robust, iters, final_row, chunks, per_chunk,
         # stream
         [_VP] * 11 + [_I] * 7 + [_F] + [_I] * 5 + [_VP]),
+    # logits, out, vecs, scratch, dtype, K, N, iters, final_row, blocks, stream
+    "nrv_sinkhorn_softmax_fwd": ([_VP] * 4 + [_I] * 6 + [_VP]),
+    # logits, g, vecs, ds, scratch, dtype, K, N, iters, final_row, blocks,
+    # stream
+    "nrv_sinkhorn_softmax_bwd": ([_VP] * 5 + [_I] * 6 + [_VP]),
+    # logits, out, va, vb, scratch, dtype, K, NR, NC, iters, final_row,
+    # blocks, stream
+    "nrv_sinkhorn_softmax_rect_fwd": ([_VP] * 5 + [_I] * 7 + [_VP]),
+    # logits, g, va, vb, ds, scratch, dtype, K, NR, NC, iters, final_row,
+    # blocks, stream
+    "nrv_sinkhorn_softmax_rect_bwd": ([_VP] * 6 + [_I] * 7 + [_VP]),
     "nrv_cuda_error_string": ([_I]),
 }
 

@@ -22,7 +22,10 @@
 //   dQ = scale·dS·K, dK = scale·dSᵀ·Q.
 // Only one N×N matrix is held, so LeViT's N = 196 fits in one block's
 // shared memory with o/a and t1 beside it (they share space with the
-// chain's vectors, which come after them).
+// chain's vectors, which come after them). Where o/a and t1 at their full
+// width DV do not fit beside the matrix (N = 196 with DV = 64: stage 0 of
+// LeViT-192/256/384), they are formed DVC = 32 columns at a time, and da
+// and db add up the chunks' row sums in chunk order.
 //
 // dbias across blocks. The TPU kernel sums dbias by revisiting one output
 // block over a sequential grid axis. CUDA blocks run in no order, so here
@@ -47,19 +50,29 @@ namespace nrv {
 
 // Floats of shared memory after the matrix and the GEMM tiles: ones, the
 // ka a-rows, the iters b-rows, da, db_row, then a region that holds o/a and
-// t1 (2·N·DV) first and the chain's svec, m_dc, row_term, iters dc and
-// iters dr vectors after them.
-__host__ __device__ inline size_t biased_bwd_vector_floats(int n, int dv, int iters,
+// t1 (2·N·DVC, DVC the columns formed at a time) first and the chain's
+// svec, m_dc, row_term, iters dc and iters dr vectors after them.
+__host__ __device__ inline size_t biased_bwd_vector_floats(int n, int dvc, int iters,
                                                            int ka) {
   const size_t head = (1 + (size_t)ka + iters + 2) * n;
   const size_t chain = (3 + 2 * (size_t)iters) * n;
-  const size_t prod = 2 * (size_t)n * dv;
+  const size_t prod = 2 * (size_t)n * dvc;
   return head + (chain > prod ? chain : prod);
 }
 
-inline size_t biased_bwd_smem_bytes(int n, int dv, int iters, int ka) {
+inline size_t biased_bwd_smem_bytes(int n, int dvc, int iters, int ka) {
   return sizeof(float) * ((size_t)n * padded_ld(n) + (size_t)kGemmSmemFloats +
-                          biased_bwd_vector_floats(n, dv, iters, ka));
+                          biased_bwd_vector_floats(n, dvc, iters, ka));
+}
+
+// The o/a and t1 columns formed at a time: all DV of them where they fit
+// beside the kernel's static shared memory in what a block may use, else
+// 32 (DV a multiple of 32); 0 when neither fits.
+// ops/cuda/biased_attention.py::_dv_chunk mirrors this for the gate.
+inline int biased_bwd_dv_chunk(int n, int dv, int iters, int ka, size_t limit) {
+  if (biased_bwd_smem_bytes(n, dv, iters, ka) <= limit) return dv;
+  if (dv % 32 == 0 && biased_bwd_smem_bytes(n, 32, iters, ka) <= limit) return 32;
+  return 0;
 }
 
 // Three blocks per SM (at most 85 registers a thread): faster than two,
@@ -72,8 +85,9 @@ biased_attention_bwd_kernel(const T* __restrict__ q_all, const T* __restrict__ k
                             const T* __restrict__ g_all, const float* __restrict__ vecs,
                             T* __restrict__ dq_all, T* __restrict__ dk_all,
                             T* __restrict__ dv_all, float* __restrict__ partial,
-                            int BW, int H, int N, int D, int DV, int nW, float scale,
-                            int robust, int iters, int final_row, int per_chunk) {
+                            int BW, int H, int N, int D, int DV, int DVC, int nW,
+                            float scale, int robust, int iters, int final_row,
+                            int per_chunk) {
   extern __shared__ float smem[];
   __shared__ int s_tu[kMaxTerms], s_tv[kMaxTerms];
   const int ka = robust ? (iters > 1 ? iters - 1 : 0) + final_row : 0;
@@ -86,8 +100,8 @@ biased_attention_bwd_kernel(const T* __restrict__ q_all, const T* __restrict__ k
   float* brows = arows + (size_t)ka * N;
   float* da = brows + (size_t)iters * N;
   float* db_row = da + N;
-  float* OA = db_row + N;  // o/a [N, DV], then the chain's vectors
-  float* T1 = OA + (size_t)N * DV;
+  float* OA = db_row + N;  // o/a [N, DVC], then the chain's vectors
+  float* T1 = OA + (size_t)N * DVC;
   float* svec = db_row + N;
   float* m_dc = svec + N;
   float* row_term = m_dc + N;
@@ -138,37 +152,40 @@ biased_attention_bwd_kernel(const T* __restrict__ q_all, const T* __restrict__ k
       __syncthreads();
     }
 
-    block_gemm<true, true>(  // o/a = A·(b⊙V)
-        N, DV, N, [=](int i, int j) { return run4(P + (size_t)i * ldn + j); },
-        [=](int j, int c) { return run4(v + j * DV + c, b_fin[j]); },
-        [=](int i, int c, float acc) { OA[(size_t)i * DV + c] = acc; }, gemm_smem);
-    block_gemm<false, true>(  // t1 = Aᵀ·(a⊙G)
-        N, DV, N, [=](int j, int i) { return run4(P + (size_t)i * ldn + j); },
-        [=](int i, int c) { return run4(g + i * DV + c, a_fin[i]); },
-        [=](int j, int c, float acc) { T1[(size_t)j * DV + c] = acc; }, gemm_smem);
-
+    // DVC columns c0.. at a time: o/a = A·(b⊙V), t1 = Aᵀ·(a⊙G), then
     // da = rowsum(G ⊙ o/a), db = rowsum(t1 ⊙ V), dV = b ⊙ t1
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    for (int i = warp; i < N; i += kWarps) {
-      float sa = 0.f, sb = 0.f;
-      for (int c = lane; c < DV; c += 32) {
-        const float t1 = T1[(size_t)i * DV + c];
-        sa = fmaf(to_f(g[i * DV + c]), OA[(size_t)i * DV + c], sa);
-        sb = fmaf(t1, to_f(v[i * DV + c]), sb);
-        store_f(dv + i * DV + c, b_fin[i] * t1);
+    for (int c0 = 0; c0 < DV; c0 += DVC) {
+      block_gemm<true, true>(
+          N, DVC, N, [=](int i, int j) { return run4(P + (size_t)i * ldn + j); },
+          [=](int j, int c) { return run4(v + j * DV + c0 + c, b_fin[j]); },
+          [=](int i, int c, float acc) { OA[(size_t)i * DVC + c] = acc; }, gemm_smem);
+      block_gemm<false, true>(
+          N, DVC, N, [=](int j, int i) { return run4(P + (size_t)i * ldn + j); },
+          [=](int i, int c) { return run4(g + i * DV + c0 + c, a_fin[i]); },
+          [=](int j, int c, float acc) { T1[(size_t)j * DVC + c] = acc; }, gemm_smem);
+      for (int i = warp; i < N; i += kWarps) {
+        float sa = 0.f, sb = 0.f;
+        for (int c = lane; c < DVC; c += 32) {
+          const float t1 = T1[(size_t)i * DVC + c];
+          sa = fmaf(to_f(g[i * DV + c0 + c]), OA[(size_t)i * DVC + c], sa);
+          sb = fmaf(t1, to_f(v[i * DV + c0 + c]), sb);
+          store_f(dv + i * DV + c0 + c, b_fin[i] * t1);
+        }
+        sa = warp_sum(sa);
+        sb = warp_sum(sb);
+        if (lane == 0) {
+          da[i] = c0 ? da[i] + sa : sa;
+          db_row[i] = c0 ? db_row[i] + sb : sb;
+        }
       }
-      sa = warp_sum(sa);
-      sb = warp_sum(sb);
-      if (lane == 0) {
-        da[i] = sa;
-        db_row[i] = sb;
-      }
+      __syncthreads();  // o/a and t1 are dead from here: the next chunk or
+                        // the chain reuses them
     }
-    __syncthreads();  // o/a and t1 are dead from here: the chain reuses them
 
     int nt = 0;
     if (robust) {
-      nt = sinkhorn_reverse_chain(P, N, ldn, iters, final_row != 0, vbase, ones, arows,
+      nt = sinkhorn_reverse_chain(P, N, N, ldn, iters, final_row != 0, vbase, ones, arows,
                                   brows, da, db_row, svec, m_dc, dcs, drs, s_tu, s_tv);
     } else {
       for (int i = threadIdx.x; i < N; i += kThreads) svec[i] = 0.f;
@@ -223,10 +240,18 @@ int launch_biased_bwd(const void* q, const void* k, const void* v, const void* b
                       int nW, float scale, int robust, int iters, int final_row,
                       int chunks, int per_chunk, cudaStream_t stream) {
   const int ka = robust ? (iters > 1 ? iters - 1 : 0) + final_row : 0;
-  const size_t smem = biased_bwd_smem_bytes(N, DV, iters, ka);
-  cudaError_t err = cudaFuncSetAttribute(biased_attention_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  int device = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, biased_attention_bwd_kernel<T>);
+  if (err != cudaSuccess) return (int)err;
+  const int DVC = biased_bwd_dv_chunk(N, DV, iters, ka, (size_t)optin - attr.sharedSizeBytes);
+  if (DVC == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = biased_bwd_smem_bytes(N, DVC, iters, ka);
+  err = cudaFuncSetAttribute(biased_attention_bwd_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // one chunk: the single partial is dbias itself
   float* part = static_cast<float*>(chunks == 1 ? dbias : partial);
@@ -234,8 +259,8 @@ int launch_biased_bwd(const void* q, const void* k, const void* v, const void* b
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(bias), static_cast<const T*>(dout),
       static_cast<const float*>(vecs), static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), bias ? part : nullptr, BW, H, N, D, DV, nW, scale, robust,
-      iters, final_row, per_chunk);
+      static_cast<T*>(dv), bias ? part : nullptr, BW, H, N, D, DV, DVC, nW, scale,
+      robust, iters, final_row, per_chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess || !bias || chunks == 1) return (int)err;
   const size_t elems = (size_t)nW * H * N * N;

@@ -161,7 +161,7 @@ packed_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dou
       }
       __syncthreads();
 
-      const int nt = sinkhorn_reverse_chain(P, N, ldn, iters, final_row != 0, vbase,
+      const int nt = sinkhorn_reverse_chain(P, N, N, ldn, iters, final_row != 0, vbase,
                                             ones, arows, brows, da, db_row,
                                             svec, m_dc, dcs, drs, s_tu, s_tv);
       // row term = rowsum(direct dA ⊙ A) + svec, with rowsum(dA ⊙ A) =

@@ -69,10 +69,10 @@ packed_attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
         [=](int c, int j) { return run4(k + j * ld + c); },
         [=](int i, int j, float acc) { E[(size_t)i * ldn + j] = acc * scale; },
         gemm_smem);
-    softmax_rows(E, N, ldn, inv_r, vec + (size_t)(R - 1) * N);
+    softmax_rows(E, N, N, ldn, inv_r, vec + (size_t)(R - 1) * N);
     if (robust) {
-      sinkhorn_forward_chain(E, N, ldn, inv_r, iters, final_row != 0, a_scale, bvec,
-                             vec);
+      sinkhorn_forward_chain(E, N, N, ldn, inv_r, iters, final_row != 0, a_scale, bvec,
+                             vec, vec + (size_t)num_arows(iters, final_row) * N);
     } else {
       for (int i = threadIdx.x; i < N; i += kThreads) {
         a_scale[i] = inv_r[i];

@@ -1,8 +1,9 @@
-// Device building blocks shared by the Sinkhorn attention kernels: a block
-// GEMM on the tensor cores (float32-level accuracy: bf16 MMAs where both
-// operands are exact bf16, 3xTF32 otherwise), softmax and row and column
-// reductions over an N×N float32 matrix, and the forward and reverse
-// Sinkhorn scaling chains.
+// Device building blocks shared by the Sinkhorn kernels: a block GEMM on
+// the tensor cores (float32-level accuracy: bf16 MMAs where both operands
+// are exact bf16, 3xTF32 otherwise), softmax and row and column reductions
+// over an nr×nc float32 matrix (square, nr = nc = N, for self-attention;
+// rectangular for the logits-interface kernel's cross-shaped matrices), and
+// the forward and reverse Sinkhorn scaling chains.
 //
 // Counterpart of the math in noise_robust_vit_tpu/ops/pallas/
 // sinkhorn_attention.py: _fwd_math_batched (:202), _restore_vec_rows (:349),
@@ -46,6 +47,11 @@ constexpr int kGemmSmemFloats = 2 * kTileFloats;
 // a-rows, the b-rows and lse when robust; lse alone otherwise.
 __host__ __device__ inline int num_vecs(int iters, int final_row, int robust) {
   return robust ? (iters > 1 ? iters - 1 : 0) + final_row + iters + 1 : 1;
+}
+
+// Stored Sinkhorn a-rows: iters − 1 iteration rows, plus the final one.
+__host__ __device__ inline int num_arows(int iters, int final_row) {
+  return (iters > 1 ? iters - 1 : 0) + final_row;
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -286,12 +292,12 @@ __device__ void block_gemm(int M, int N, int K, LoadA load_a, LoadB load_b,
   __syncthreads();
 }
 
-// The n×n matrices below are float32 with row stride ld, in global memory.
-// At N ≈ 200 the chain's passes over them are bound by device-memory
-// bandwidth: the scratch slots of the blocks in flight do not stay in L2.
-// Streaming a row (one warp) or all columns of a row (the whole block) at a
-// time reads the matrix in order, and measured fastest among the orders
-// tried (PERF.md).
+// The nr×nc matrices below are float32 with row stride ld, in shared or
+// global memory. At N ≈ 200 the packed kernels' passes over a global
+// scratch are bound by device-memory bandwidth: the scratch slots of the
+// blocks in flight do not stay in L2. Streaming a row (one warp) or all
+// columns of a row (the whole block) at a time reads the matrix in order,
+// and measured fastest among the orders tried (PERF.md).
 constexpr int kCols = 8;
 constexpr int kColBlock = 32 * kCols;  // columns one pass of a warp covers
 
@@ -313,12 +319,13 @@ __device__ __forceinline__ float warp_dot(const float* x, const float* w, int n)
   return warp_sum(s);
 }
 
-// post(i, Σ_j E[i, j]·w[j]) for every row i: one warp per row.
+// post(i, Σ_j E[i, j]·w[j]) for every row i < nr: one warp per row.
 template <class Post>
-__device__ void rows_dot(const float* E, int n, int ld, const float* w, Post post) {
+__device__ void rows_dot(const float* E, int nr, int nc, int ld, const float* w,
+                         Post post) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = warp; i < n; i += kWarps) {
-    const float s = warp_dot(E + (size_t)i * ld, w, n);
+  for (int i = warp; i < nr; i += kWarps) {
+    const float s = warp_dot(E + (size_t)i * ld, w, nc);
     if (lane == 0) post(i, s);
   }
   __syncthreads();
@@ -329,30 +336,31 @@ __device__ void rows_dot(const float* E, int n, int ld, const float* w, Post pos
 // Σ E[i, j]·w[i] in the returned shared array. Not a template, so that
 // every caller shares one array (a template's static shared array would be
 // one per instantiation).
-__device__ inline float* cols_partials(const float* E, int n, int ld, const float* w,
-                                       int cw, int groups) {
+__device__ inline float* cols_partials(const float* E, int nr, int nc, int ld,
+                                       const float* w, int cw, int groups) {
   __shared__ float part[kThreads];
   const int j = threadIdx.x % cw, grp = threadIdx.x / cw;
   float s = 0.f;
-  if (grp < groups && j < n)
-    for (int i = grp; i < n; i += groups) s = fmaf(E[(size_t)i * ld + j], w[i], s);
+  if (grp < groups && j < nc)
+    for (int i = grp; i < nr; i += groups) s = fmaf(E[(size_t)i * ld + j], w[i], s);
   part[threadIdx.x] = s;
   __syncthreads();
   return part;
 }
 
-// post(j, Σ_i E[i, j]·w[i]) for every column j: one thread per column, so
-// the block reads each row whole before the next. A narrow matrix (at most
-// kThreads / 2 columns, a window of 49 or 64 tokens) would leave most
+// post(j, Σ_i E[i, j]·w[i]) for every column j < nc: one thread per column,
+// so the block reads each row whole before the next. A narrow matrix (at
+// most kThreads / 2 columns, a window of 49 or 64 tokens) would leave most
 // threads idle that way, so there the rows are dealt out to groups of
 // threads, and the groups' partial sums are added in a fixed order.
 template <class Post>
-__device__ void cols_dot(const float* E, int n, int ld, const float* w, Post post) {
-  const int cw = (n + 31) / 32 * 32;  // columns of one group, whole warps
+__device__ void cols_dot(const float* E, int nr, int nc, int ld, const float* w,
+                         Post post) {
+  const int cw = (nc + 31) / 32 * 32;  // columns of one group, whole warps
   const int groups = kThreads / cw;
   if (groups > 1) {
-    const float* part = cols_partials(E, n, ld, w, cw, groups);
-    if (threadIdx.x < n) {
+    const float* part = cols_partials(E, nr, nc, ld, w, cw, groups);
+    if (threadIdx.x < nc) {
       float t = 0.f;
       for (int g = 0; g < groups; ++g) t += part[g * cw + threadIdx.x];
       post(threadIdx.x, t);
@@ -360,37 +368,37 @@ __device__ void cols_dot(const float* E, int n, int ld, const float* w, Post pos
     __syncthreads();
     return;
   }
-  for (int j = threadIdx.x; j < n; j += kThreads) {
+  for (int j = threadIdx.x; j < nc; j += kThreads) {
     float s = 0.f;
-    for (int i = 0; i < n; ++i) s = fmaf(E[(size_t)i * ld + j], w[i], s);
+    for (int i = 0; i < nr; ++i) s = fmaf(E[(size_t)i * ld + j], w[i], s);
     post(j, s);
   }
   __syncthreads();
 }
 
-// In place over the logits s: E ← e = exp(s − m) with m the row max;
-// inv_r[i] = 1 / Σ_j e_ij; lse[i] = m_i + log Σ_j e_ij (the residual row the
-// backward rebuilds attn from in one exp). A warp takes kRows rows at once
-// and issues all their loads before it uses any.
+// In place over the logits s [nr, nc]: E ← e = exp(s − m) with m the row
+// max; inv_r[i] = 1 / Σ_j e_ij; lse[i] = m_i + log Σ_j e_ij (the residual
+// row the backward rebuilds attn from in one exp). A warp takes kRows rows
+// at once and issues all their loads before it uses any.
 constexpr int kRows = 4;
-__device__ inline void softmax_rows(float* E, int n, int ld, float* inv_r,
+__device__ inline void softmax_rows(float* E, int nr, int nc, int ld, float* inv_r,
                                     float* lse) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i0 = warp; i0 < n; i0 += kWarps * kRows) {
+  for (int i0 = warp; i0 < nr; i0 += kWarps * kRows) {
     float m[kRows], r[kRows];
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
       m[q] = -INFINITY;
       r[q] = 0.f;
     }
-    for (int j0 = lane; j0 < n; j0 += kColBlock) {
+    for (int j0 = lane; j0 < nc; j0 += kColBlock) {
       float x[kRows][kCols];
 #pragma unroll
       for (int q = 0; q < kRows; ++q)
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           const int i = i0 + kWarps * q, j = j0 + 32 * c;
-          x[q][c] = (i < n && j < n) ? E[(size_t)i * ld + j] : -INFINITY;
+          x[q][c] = (i < nr && j < nc) ? E[(size_t)i * ld + j] : -INFINITY;
         }
 #pragma unroll
       for (int q = 0; q < kRows; ++q)
@@ -399,21 +407,21 @@ __device__ inline void softmax_rows(float* E, int n, int ld, float* inv_r,
     }
 #pragma unroll
     for (int q = 0; q < kRows; ++q) m[q] = warp_max(m[q]);
-    for (int j0 = lane; j0 < n; j0 += kColBlock) {
+    for (int j0 = lane; j0 < nc; j0 += kColBlock) {
       float x[kRows][kCols];
 #pragma unroll
       for (int q = 0; q < kRows; ++q)
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           const int i = i0 + kWarps * q, j = j0 + 32 * c;
-          x[q][c] = (i < n && j < n) ? E[(size_t)i * ld + j] : 0.f;
+          x[q][c] = (i < nr && j < nc) ? E[(size_t)i * ld + j] : 0.f;
         }
 #pragma unroll
       for (int q = 0; q < kRows; ++q)
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           const int i = i0 + kWarps * q, j = j0 + 32 * c;
-          if (i < n && j < n) {
+          if (i < nr && j < nc) {
             const float e = expf(x[q][c] - m[q]);
             E[(size_t)i * ld + j] = e;
             r[q] += e;
@@ -424,7 +432,7 @@ __device__ inline void softmax_rows(float* E, int n, int ld, float* inv_r,
     for (int q = 0; q < kRows; ++q) {
       const float rs = warp_sum(r[q]);
       const int i = i0 + kWarps * q;
-      if (lane == 0 && i < n) {
+      if (lane == 0 && i < nr) {
         inv_r[i] = 1.f / rs;
         lse[i] = m[q] + logf(rs);
       }
@@ -435,99 +443,96 @@ __device__ inline void softmax_rows(float* E, int n, int ld, float* inv_r,
 
 // Forward Sinkhorn chain on e (row normalizer folded into the vectors, as in
 // _fwd_math_batched): a_0 ≡ 1, so the first row normalization is skipped.
-// Writes the a-rows (iters − 1, plus the final one) then the iters b-rows
-// into vec_out (row stride n). Leaves the output row scale a·(1/r) in
-// a_scale and the final column scale in b.
-__device__ inline void sinkhorn_forward_chain(const float* E, int n, int ld,
+// Writes the a-rows (iters − 1, plus the final one; width nr) to a_out and
+// the iters b-rows (width nc) to b_out. Leaves the output row scale
+// a·(1/r) in a_scale and the final column scale in b.
+__device__ inline void sinkhorn_forward_chain(const float* E, int nr, int nc, int ld,
                                               const float* inv_r, int iters,
                                               bool final_row, float* a_scale,
-                                              float* b, float* vec_out) {
-  const int ka = max(iters - 1, 0) + (final_row ? 1 : 0);
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    a_scale[i] = inv_r[i];
-    b[i] = 1.f;
-  }
+                                              float* b, float* a_out, float* b_out) {
+  for (int i = threadIdx.x; i < nr; i += kThreads) a_scale[i] = inv_r[i];
+  for (int j = threadIdx.x; j < nc; j += kThreads) b[j] = 1.f;
   __syncthreads();
   int arow = 0;
   auto row_step = [&](int i, float s) {
     const float a = recip_clamped(s * inv_r[i]);  // rowsum(attn⊙b)
-    vec_out[(size_t)arow * n + i] = a;
+    a_out[(size_t)arow * nr + i] = a;
     a_scale[i] = a * inv_r[i];
   };
   for (int t = 0; t < iters; ++t) {
     if (t > 0) {
-      rows_dot(E, n, ld, b, row_step);
+      rows_dot(E, nr, nc, ld, b, row_step);
       ++arow;
     }
-    float* brow = vec_out + (size_t)(ka + t) * n;
-    cols_dot(E, n, ld, a_scale, [&](int j, float s) {
+    float* brow = b_out + (size_t)t * nc;
+    cols_dot(E, nr, nc, ld, a_scale, [&](int j, float s) {
       const float bj = recip_clamped(s);
       brow[j] = bj;
       b[j] = bj;
     });
   }
-  if (final_row) rows_dot(E, n, ld, b, row_step);
+  if (final_row) rows_dot(E, nr, nc, ld, b, row_step);
 }
 
 // Reverse of the Sinkhorn iteration (_reverse_chain_inner, default path).
-// In: attn [n, n]; the scaling vectors as_r(t) (a_0 ≡ ones, then the stored
-// a-rows) and bs_r(t) (b_0 ≡ ones, then the stored b-rows); da, the grad of
-// the final a; db_row, the grad of the final b (overwritten). Out: svec, the
-// chain's part of the softmax-vjp row term, and the rank-1 dA terms as
+// In: attn [nr, nc]; the scaling vectors as_r(t) (a_0 ≡ ones, then the
+// stored a-rows, width nr) and bs_r(t) (b_0 ≡ ones, then the stored b-rows,
+// width nc); `ones` holds max(nr, nc) ones; da (nr), the grad of the final
+// a; db_row (nc), the grad of the final b (overwritten). Out: svec (nr),
+// the chain's part of the softmax-vjp row term, and the rank-1 dA terms as
 // offsets into `vbase` (tu[k] the row factor, tv[k] the column factor),
 // collected to be applied once by the caller. Returns the term count.
-// Scratch vectors: m_dc (n), dcs (iters·n), drs (iters·n).
-__device__ inline int sinkhorn_reverse_chain(const float* attn, int n, int ld,
+// Scratch vectors: m_dc (nr), dcs (iters·nc), drs (iters·nr).
+__device__ inline int sinkhorn_reverse_chain(const float* attn, int nr, int nc, int ld,
                                              int iters, bool final_row,
                                              const float* vbase, const float* ones,
                                              const float* arows, const float* brows,
                                              const float* da, float* db_row,
                                              float* svec, float* m_dc, float* dcs,
                                              float* drs, int* tu, int* tv) {
-  auto as_r = [&](int t) { return t == 0 ? ones : arows + (size_t)(t - 1) * n; };
-  auto bs_r = [&](int t) { return t == 0 ? ones : brows + (size_t)(t - 1) * n; };
+  auto as_r = [&](int t) { return t == 0 ? ones : arows + (size_t)(t - 1) * nr; };
+  auto bs_r = [&](int t) { return t == 0 ? ones : brows + (size_t)(t - 1) * nc; };
   auto push = [&](int k, const float* u, const float* v) {
     if (threadIdx.x == 0) {
       tu[k] = (int)(u - vbase);
       tv[k] = (int)(v - vbase);
     }
   };
-  const int ka = max(iters - 1, 0) + (final_row ? 1 : 0);
-  const float* a_fin = as_r(ka);
+  const float* a_fin = as_r(num_arows(iters, final_row ? 1 : 0));
   int nt = 0, ndr = 0;
   if (final_row) {
     // a* = recip(A b_T); A·b_T = 1/a_fin by construction
-    float* dr = drs + (size_t)(ndr++) * n;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
+    float* dr = drs + (size_t)(ndr++) * nr;
+    for (int i = threadIdx.x; i < nr; i += kThreads) {
       const float tmp = da[i] * a_fin[i];
       dr[i] = -(tmp * a_fin[i]);
       svec[i] = -tmp;
     }
     push(nt++, dr, bs_r(iters));
     __syncthreads();
-    cols_dot(attn, n, ld, dr, [&](int j, float s) { db_row[j] += s; });
+    cols_dot(attn, nr, nc, ld, dr, [&](int j, float s) { db_row[j] += s; });
   } else {
-    for (int i = threadIdx.x; i < n; i += kThreads) svec[i] = 0.f;
+    for (int i = threadIdx.x; i < nr; i += kThreads) svec[i] = 0.f;
     __syncthreads();
   }
   for (int t = iters - 1; t >= 0; --t) {
     // b_t = recip(Aᵀ a_t): db_row holds the grad of b_t = bs_r(t + 1)
-    float* dc = dcs + (size_t)t * n;
+    float* dc = dcs + (size_t)t * nc;
     const float* b_t = bs_r(t + 1);
-    for (int j = threadIdx.x; j < n; j += kThreads) dc[j] = db_row[j] * -(b_t[j] * b_t[j]);
+    for (int j = threadIdx.x; j < nc; j += kThreads) dc[j] = db_row[j] * -(b_t[j] * b_t[j]);
     __syncthreads();
-    rows_dot(attn, n, ld, dc, [&](int i, float s) { m_dc[i] = s; });  // A·dc
+    rows_dot(attn, nr, nc, ld, dc, [&](int i, float s) { m_dc[i] = s; });  // A·dc
     push(nt++, as_r(t), dc);
     if (t == 0) {
       // a_0 is the constant 1: its own gradient is discarded
-      for (int i = threadIdx.x; i < n; i += kThreads) svec[i] += m_dc[i];
+      for (int i = threadIdx.x; i < nr; i += kThreads) svec[i] += m_dc[i];
       __syncthreads();
       break;
     }
     const float* a_t = as_r(t);
-    float* dr = drs + (size_t)(ndr++) * n;
+    float* dr = drs + (size_t)(ndr++) * nr;
     const bool da_live = !final_row && t == iters - 1;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
+    for (int i = threadIdx.x; i < nr; i += kThreads) {
       const float md = m_dc[i];
       const float s = svec[i] + a_t[i] * md;
       const float tmp = (da_live ? da[i] + md : md) * a_t[i];  // = da·a_t
@@ -536,7 +541,7 @@ __device__ inline int sinkhorn_reverse_chain(const float* attn, int n, int ld,
     }
     push(nt++, dr, bs_r(t));
     __syncthreads();
-    cols_dot(attn, n, ld, dr, [&](int j, float s) { db_row[j] = s; });  // Aᵀ·dr
+    cols_dot(attn, nr, nc, ld, dr, [&](int j, float s) { db_row[j] = s; });  // Aᵀ·dr
   }
   return nt;
 }

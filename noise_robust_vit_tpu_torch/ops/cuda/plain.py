@@ -72,17 +72,18 @@ def attention_fwd_plain(q, k, v, scale, robust=False, iters=3, final_row=True,
 def _reverse_chain_inner(attn, dA, da, db_row, row_direct, as_r, bs_r, iters,
                          final_row):
     """``sinkhorn_attention.py::_reverse_chain_inner`` (default path): returns
-    ``inner`` with ``ds = attn ⊙ inner``. ``as_r``/``bs_r`` are ROW vectors
-    ``[K, 1, N]``; the rank-1 terms are collected and applied in one bmm."""
-    kb, n = attn.shape[0], attn.shape[-1]
-    a_fin = as_r[-1].reshape(kb, n, 1)
+    ``inner`` with ``ds = attn ⊙ inner`` for ``attn [K, NR, NC]``. ``as_r``
+    are ROW vectors ``[K, 1, NR]`` and ``bs_r`` ``[K, 1, NC]``; the rank-1
+    terms are collected and applied in one bmm."""
+    kb, nr = attn.shape[0], attn.shape[1]
+    a_fin = as_r[-1].reshape(kb, nr, 1)
     terms = []
     svec = torch.zeros_like(da)
     da_live = not final_row
     if final_row:
         tmp = da * a_fin
         dr = -(tmp * a_fin)
-        terms.append((dr.reshape(kb, 1, n), bs_r[-1]))
+        terms.append((dr.reshape(kb, 1, nr), bs_r[-1]))
         svec = -tmp
         db_row = db_row + (attn * dr).sum(-2, keepdim=True)
     for t in range(iters - 1, -1, -1):
@@ -92,13 +93,13 @@ def _reverse_chain_inner(attn, dA, da, db_row, row_direct, as_r, bs_r, iters,
         if t == 0:
             svec = svec + m_dc
             break
-        a_t = as_r[t].reshape(kb, n, 1)
+        a_t = as_r[t].reshape(kb, nr, 1)
         svec = svec + a_t * m_dc
         da_eff = (da + m_dc) if (da_live and t == iters - 1) else m_dc
         tmp = da_eff * a_t
         svec = svec - tmp
         dr = -(tmp * a_t)
-        terms.append((dr.reshape(kb, 1, n), bs_r[t]))
+        terms.append((dr.reshape(kb, 1, nr), bs_r[t]))
         db_row = (attn * dr).sum(-2, keepdim=True)
     row_term = row_direct + svec
     u_mat = torch.cat([u for u, _ in terms], dim=1)  # [K, T, N]

@@ -68,7 +68,23 @@ def sinkhorn_normalize(attn: torch.Tensor, num_iters: int = 3,
 def sinkhorn_attention(logits: torch.Tensor, axis: int = -1, num_iters: int = 3,
                        final_row_norm: bool = True) -> torch.Tensor:
     """softmax then Sinkhorn renormalization, in float32, cast back to the
-    input dtype (ref utils.py:1025-1037)."""
+    input dtype (ref utils.py:1025-1037).
+
+    Over the last axis, a square shape inside the square kernels' gate takes
+    ``SinkhornSoftmax`` and a non-square one inside the rectangular gate
+    ``SinkhornSoftmaxRect`` (the CUDA kernels for a CUDA tensor, their plain
+    versions for a CPU one), as the JAX package routes them to its Pallas
+    kernels; anything else takes the vector form below. The choice is made
+    on shape and dtype before the call."""
+    if axis in (-1, logits.ndim - 1):
+        # imported here: the kernels' module imports this one
+        from .cuda import sinkhorn_softmax as ss
+
+        args = (logits.shape, num_iters, logits.dtype)
+        if ss.sinkhorn_softmax_supported(*args):
+            return ss.SinkhornSoftmax.apply(logits, int(num_iters), bool(final_row_norm))
+        if ss.sinkhorn_softmax_rect_supported(*args):
+            return ss.SinkhornSoftmaxRect.apply(logits, int(num_iters), bool(final_row_norm))
     attn = torch.softmax(logits.float(), dim=axis)
     attn = sinkhorn_normalize(attn, num_iters=num_iters, final_row_norm=final_row_norm)
     return attn.to(logits.dtype)

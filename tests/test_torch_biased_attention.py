@@ -150,6 +150,9 @@ def test_cpu_tensor_takes_plain_version():
     ((2048, 3, 64, 32, 32, 64), 3, True),    # swin_v2_t stage 0
     ((256, 4, 196, 16, 32, 1), 4, True),     # LeViT
     ((256, 4, 196, 16, 32, 1), 5, False),    # LeViT, too many chain vectors
+    ((64, 4, 196, 32, 64, 1), 4, True),      # LeViT-256 stage 0: o/a, t1 in chunks
+    ((64, 4, 196, 32, 64, 1), 5, False),     # ... too many chain vectors
+    ((64, 4, 196, 32, 40, 1), 3, False),     # DV too wide, no 32-column chunks
     ((8192, 8, 49, 64, 64, 1), 3, True),     # Twins local
     ((8, 3, 197, 32, 32, 1), 3, False),      # N above MAX_N
     ((8, 3, 49, 36, 36, 1), 3, False),       # D not a multiple of 8
@@ -217,7 +220,8 @@ def _card_inputs(seed, shape, device, dtype):
 
 
 CARD_SHAPES = [(8, 3, 23, 32, 32, 4), (4, 2, 17, 16, 32, 1), (64, 3, 49, 32, 32, 16),
-               (16, 3, 64, 32, 32, 4), (4, 4, 196, 16, 32, 1), (32, 8, 49, 64, 64, 1)]
+               (16, 3, 64, 32, 32, 4), (4, 4, 196, 16, 32, 1), (32, 8, 49, 64, 64, 1),
+               (4, 4, 196, 32, 64, 1), (2, 2, 196, 16, 128, 1)]
 
 
 @pytest.mark.gpu

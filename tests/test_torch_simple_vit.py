@@ -59,7 +59,7 @@ def test_logits_and_grads_match_jax(robust, dim_head):
 
     (_, logits_j), grads_j = jax.value_and_grad(loss_fn, has_aux=True)(params)
 
-    model = SimpleViT(robust=robust, dim_head=dim_head, **CFG)
+    model = SimpleViT(robust=robust, dim_head=dim_head, device="cpu", **CFG)
     model.load_state_dict(convert_params(params), strict=True)
     logits_t = model(torch.from_numpy(x))
     F.cross_entropy(logits_t.float(), torch.from_numpy(y)).backward()
@@ -128,6 +128,17 @@ def test_simple_vit_b16_builds_full_width_on_meta():
                  + 768 * 3072 + 3072 + 3072 * 768 + 768)
     assert n == (16 * 16 * 3 * 768 + 768) + 12 * per_block + 2 * 768 + 768 * 1000 + 1000
     assert model.transformer.layers_11_attn.to_qkv.weight.shape == (2304, 768)
+
+
+def test_class_builds_on_the_card_by_default():
+    """``SimpleViT`` with no device named is built on the card, or raises
+    where there is none; it never falls back to the CPU."""
+    if torch.cuda.is_available():
+        assert next(SimpleViT(device=None, **CFG).parameters()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SimpleViT(**CFG)
+    assert next(SimpleViT(device="cpu", **CFG).parameters()).device.type == "cpu"
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -60,7 +60,7 @@ def test_logits_and_grads_match_jax(robust, version, image):
     finally:
         jax_ops.set_use_pallas(None)
 
-    model = SwinTransformer(robust=robust, version=version, **CFG)
+    model = SwinTransformer(robust=robust, version=version, device="cpu", **CFG)
     model.load_state_dict(convert_params(params), strict=True)
     ba.launches.reset()
     logits_t = model(torch.from_numpy(x))
@@ -89,9 +89,9 @@ def test_robust_swin_takes_the_biased_attention(monkeypatch):
 
     monkeypatch.setattr(swin.ops, "biased_attention", spy)
     x = torch.zeros(2, 32, 32, 3)
-    SwinTransformer(robust=False, **CFG)(x)
+    SwinTransformer(robust=False, device="cpu", **CFG)(x)
     assert calls == []
-    SwinTransformer(robust=True, **CFG)(x)
+    SwinTransformer(robust=True, device="cpu", **CFG)(x)
     stage0, stage1 = ((8, 2, 16, 8), (4, 2, 16, 16), 4), ((2, 2, 16, 16), (1, 2, 16, 16), 1)
     assert calls == [stage0, stage0, stage1, stage1]
 
@@ -188,10 +188,13 @@ def test_entry_points_build_on_the_card_by_default():
         model = create_model("swin_t", num_classes=10)
         assert next(model.parameters()).is_cuda
         assert next(swin.swin_t(num_classes=10).parameters()).is_cuda
+        assert next(SwinTransformer(**CFG).parameters()).is_cuda
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_model("swin_t", num_classes=10)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             swin.swin_t(num_classes=10)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            SwinTransformer(**CFG)
     model = create_model("swin_t", num_classes=10, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
