@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU: builds the hand-written
 kernels, holds them against their plain PyTorch versions, takes a few
-SimpleViT-B/16, Swin-T and LeViT-128S @224 bf16 train steps through them,
-and times kernels and steps.
+SimpleViT-B/16, Swin-T, LeViT-128S and CaiT @224 bf16 train steps through
+them, and times kernels and steps.
 
-    python3 chip_smoke.py     # all phases; ~2.5 minutes on an H100
+    python3 chip_smoke.py     # all phases; ~4 minutes on an H100
 
 Phases, one line each (or a few):
   1. device   the card's name and power limit, as nvidia-smi reports them;
@@ -28,8 +28,14 @@ Phases, one line each (or a few):
               it), dbias atol 1e-3 (a sum over up to 128 windows'
               gradients); bfloat16: atol 2e-2 (one bf16 rounding of values
               of order one), the Sinkhorn weights and d logits (of order
-              1/N) rtol 8e-3 (one bf16 ulp) and atol 1e-3/N
-  4. slice    small SimpleViT, Swin v1/v2 and LeViT models, kernels against
+              1/N) rtol 8e-3 (one bf16 ulp) and atol 1e-3/N; the
+              talking-heads kernels against theirs at CaiT's [128, 8, 196,
+              196], ragged N (197, 21) and 16 heads, (3, final) and (4, no
+              final), float32 and bfloat16, out, residual rows, d dots, d pre
+              and d post (d pre and d post, sums over every image and entry,
+              to 1e-4 of their largest magnitude in float32, 1e-3 in
+              bfloat16), and the bits of two runs at CaiT's shape
+  4. slice    small SimpleViT, Swin v1/v2, LeViT and CaiT models, kernels against
               the plain path (LeViT in train mode, with its BN running
               statistics); 5 AdamW steps (lr 1e-4, wd 0.05) on one fixed
               batch of 64, robust and vanilla, of SimpleViT-B/16, Swin-T and
@@ -40,15 +46,22 @@ Phases, one line each (or a few):
               (N=64) and of LeViT-256 bf16 at batch 64 (12 biased, stage 0
               at DV 64 included, 2 rect, 0 square); robust_softmax fwd+bwd
               on deepvit's square f32 logits [128, 8, 197, 197] (1 square
-              launch each way: no ported model runs the square kernel yet)
+              launch each way: no ported model runs the square kernel yet);
+              small CaiT f32 robust (N = 49) card vs cpu (2 talking-heads
+              launches each way); 5 + 5 steps of CaiT @224 bf16 at batch 64
+              (6 talking-heads launches each way a robust step, 0 square and
+              0 rect; none vanilla)
   5. timing   kernels against plain versions at [256, 196, 2304] (packed),
               [8192, 3, 49, 32], nW=64 (biased), with
               scaled_dot_product_attention as the vanilla yardstick, and
               [256, 8, 49, 196] (rect) and [128, 8, 197, 197] (square) f32
-              with torch.softmax as the vanilla counterpart; the train step of
-              SimpleViT-B/16 at batch 256, Swin-T at batch 128 and
-              LeViT-128S at batch 256 (median of 3 windows): img/s, MFU
-              against 989 TFLOP/s dense bf16 and peak memory
+              with torch.softmax as the vanilla counterpart, and the
+              talking-heads kernels at CaiT's [128, 8, 196, 196] f32 beside
+              the vanilla sandwich (einsum, torch.softmax, einsum); the train
+              step of SimpleViT-B/16 at batch 256, Swin-T at batch 128,
+              LeViT-128S at batch 256 and CaiT at batch 128 (median of 3
+              windows): img/s, MFU against 989 TFLOP/s dense bf16, peak
+              memory, and CaiT's robust/vanilla ratio
   6. profile  device time by op and kernel over one robust train step of
               each model (torch.profiler), the top rows
 Then the card line again, a {"kernels": [...]} JSON line, and as the last
@@ -841,6 +854,179 @@ def phase_profile(torch, dev, name, batch, rows=25):
     torch.cuda.empty_cache()
 
 
+# The talking-heads kernels' checked shapes: CaiT @224 at batch 128
+# (tools/dispatch_audit.jsonl), ragged N (197, 21), 16 heads; (label,
+# shape, dtypes)
+CAIT_TH = (128, 8, 196, 196)
+TH_SHAPES = [("cait", CAIT_TH, ("float32",)), ("cait", (16, 8, 196, 196), ("bfloat16",)),
+             ("ragged", (16, 8, 197, 197), ("float32", "bfloat16")),
+             ("ragged", (4, 4, 21, 21), ("float32", "bfloat16")),
+             ("16 heads", (8, 16, 196, 196), ("float32",))]
+
+
+def th_inputs(torch, dev, rng, shape, dtype=None):
+    """dots (2·N(0, 1)), g, pre and post (N(0, 1)) on the card."""
+    h = shape[1]
+    dots, g = (torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).to(dev)
+               for scale in (2.0, 1.0))
+    pre, post = (torch.from_numpy(rng.standard_normal((h, h), dtype=np.float32)).to(dev)
+                 for _ in range(2))
+    if dtype is not None:
+        dots, g = dots.to(dtype), g.to(dtype)
+    return dots, g, pre, post
+
+
+def th_pairs(th, torch, dots, g, pre, post, iters, final_row):
+    """(kernel, plain) results of the talking-heads kernels on the same
+    inputs: out, vecs, d dots, d pre, d post."""
+    out_k, vecs_k = th.talking_heads_fwd_cuda(dots, pre, post, iters, final_row)
+    got = (out_k, vecs_k, *th.talking_heads_bwd_cuda(dots, g, vecs_k, pre, post, iters, final_row))
+    torch.cuda.synchronize()
+    out_p, vecs_p = th.talking_heads_fwd_plain(dots, pre, post, iters, final_row)
+    want = (out_p, vecs_p, *th.talking_heads_bwd_plain(dots, g, vecs_p, pre, post, iters,
+                                                       final_row))
+    torch.cuda.synchronize()
+    return got, want
+
+
+def phase_th_kernels(th, torch, dev):
+    """Talking-heads kernels against their plain versions at TH_SHAPES, both
+    schedules, (3, final) and (4, no final). float32: out, vecs and d dots
+    atol 1e-4, rtol 1e-3 (the sums run in another order and the reverse
+    chain amplifies it); d pre and d post, each entry a sum over every image
+    and n² entries (4.9 M products at CaiT's shape), to 1e-4 of the
+    tensor's largest magnitude. bfloat16 dots (math in float32): out and
+    d dots atol 2e-2 (one bf16 rounding of values of order one), vecs 1e-3,
+    d pre and d post 1e-3 of their largest magnitude. Then two runs at
+    CaiT's shape give the same bits. Returns the largest float32 absolute
+    errors at CaiT's shape, (3, final): fwd (out), bwd (d dots, d pre,
+    d post)."""
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    rng = np.random.default_rng(30)
+    names = ["out", "vecs", "ddots", "dpre", "dpost"]
+    for label, shape, dtypes in TH_SHAPES:
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
+            bf16 = dtype == torch.bfloat16
+            dots, g, pre, post = th_inputs(torch, dev, rng, shape, dtype)
+            for iters, final_row in ((3, True), (4, False)):
+                got, want = th_pairs(th, torch, dots, g, pre, post, iters, final_row)
+                errs = {nm: (a.float() - b.float()).abs().max().item()
+                        for nm, a, b in zip(names, got, want)}
+                rel = {nm: errs[nm] / want[i].abs().max().item()
+                       for i, nm in enumerate(names) if i >= 3}
+                log(f"kernels: talking_heads {label} {dname} {list(shape)} iters={iters} "
+                    f"final_row={int(final_row)} max_abs_err "
+                    + " ".join(f"{nm}={e:.3g}" for nm, e in errs.items())
+                    + " | of the largest " + " ".join(f"{nm}={e:.3g}" for nm, e in rel.items()))
+                for i, (nm, a, b) in enumerate(zip(names, got, want)):
+                    if i >= 3:
+                        if rel[nm] > (1e-3 if bf16 else 1e-4):
+                            raise RuntimeError(f"talking heads {nm}: {rel[nm]:.3g} of the "
+                                               f"largest magnitude")
+                    elif nm == "vecs":
+                        torch.testing.assert_close(a, b, atol=1e-3 if bf16 else 1e-4,
+                                                   rtol=1e-3, msg=nm)
+                    elif bf16:
+                        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=0,
+                                                   msg=nm)
+                    else:
+                        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=nm)
+                if shape == CAIT_TH and not bf16 and (iters, final_row) == (3, True):
+                    worst["fwd"] = errs["out"]
+                    worst["bwd"] = max(errs["ddots"], errs["dpre"], errs["dpost"])
+                    again = th_pairs(th, torch, dots, g, pre, post, iters, final_row)[0]
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise RuntimeError("talking heads: two runs gave different bits")
+                    log(f"kernels: talking_heads {list(shape)} float32: two runs give the "
+                        f"same bits (out, vecs, d dots, d pre, d post)")
+                    del again
+                del got, want
+            del dots, g, pre, post
+            torch.cuda.empty_cache()
+    return worst
+
+
+def phase_small_cait(th, torch, dev):
+    """The CaiT wiring through the talking-heads kernels: a small robust
+    float32 CaiT (image 56, patch 8: N = 49, ragged rows; dim 64, depth 2,
+    cls_depth 1, 4 heads) on the card against the same weights on the CPU:
+    logits (atol 1e-4, rtol 1e-3) and every parameter gradient (rtol 1e-3,
+    atol 1e-4 of each tensor's largest magnitude: the CLS stage's one query
+    row gives its to_q and to_kv tiny gradients). 2 talking-heads launches
+    each way on the card, none on the CPU."""
+    from noise_robust_vit_tpu_torch import create_model
+
+    kw = dict(num_classes=10, image_size=56, patch_size=8, robust=True, dim=64, depth=2,
+              cls_depth=1, heads=4, mlp_dim=128)
+    cpu = create_model("cait", device="cpu", **kw)
+    gpu = create_model("cait", device=dev, **kw)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal((4, 56, 56, 3), dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, size=4))
+    outs = []
+    for model, xx, yy in ((cpu, x, y), (gpu, x.to(dev), y.to(dev))):
+        th.launches.reset()
+        logits = model(xx)
+        torch.nn.functional.cross_entropy(logits.float(), yy).backward()
+        outs.append((logits.detach().cpu(), {k: p.grad.cpu() for k, p in model.named_parameters()},
+                     (th.launches.fwd, th.launches.bwd)))
+    if outs[0][2] != (0, 0) or outs[1][2] != (2, 2):
+        raise RuntimeError(f"small cait: launches cpu {outs[0][2]}, card {outs[1][2]}, "
+                           f"expected (0, 0) and (2, 2)")
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-3)
+    err = 0.0
+    for k, g in outs[0][1].items():
+        scale = g.abs().max().item()
+        torch.testing.assert_close(outs[1][1][k], g, atol=1e-4 * scale, rtol=1e-3, msg=k)
+        err = max(err, (outs[1][1][k] - g).abs().max().item() / max(scale, 1e-30))
+    log(f"slice: small CaiT f32 robust card vs cpu: logits and grads agree (max grad err "
+        f"{err:.3g} of the tensor's largest magnitude), talking-heads launches 2/2 on the "
+        f"card, 0 on the cpu")
+
+
+def phase_th_times(th, torch, dev, shape=CAIT_TH):
+    """Talking-heads kernels at CaiT's float32 dots, robust (3, final),
+    beside their plain versions and the vanilla sandwich on the same inputs
+    (einsum, torch.softmax, einsum; its backward to dots and both mixes
+    through autograd): the vanilla model's cost for the same step, not a
+    library yardstick, since no PyTorch call computes the sandwich with
+    Sinkhorn (library_ms is null). Bounds from these inputs: the bytes each
+    direction must move once, and the float32 work of the TPU kernel's own
+    estimate, B·H·N²·(4 + 4·iters + 4·H) forward and
+    B·H·N²·(8 + 4·iters + 8·H) backward."""
+    h = shape[1]
+    rng = np.random.default_rng(32)
+    dots, g, pre, post = th_inputs(torch, dev, rng, shape)
+    _, vecs = th.talking_heads_fwd_cuda(dots, pre, post)
+    t = {"fwd": cuda_ms(lambda: th.talking_heads_fwd_cuda(dots, pre, post), 20),
+         "fwd_plain": cuda_ms(lambda: th.talking_heads_fwd_plain(dots, pre, post), 5),
+         "bwd": cuda_ms(lambda: th.talking_heads_bwd_cuda(dots, g, vecs, pre, post), 20),
+         "bwd_plain": cuda_ms(lambda: th.talking_heads_bwd_plain(dots, g, vecs, pre, post), 5),
+         "fwd_lib": None, "bwd_lib": None}
+
+    def sandwich(d, p, q):
+        return torch.einsum("bhij,hg->bgij",
+                            torch.softmax(torch.einsum("bhij,hg->bgij", d, p), -1), q)
+
+    van_fwd = cuda_ms(lambda: sandwich(dots, pre, post), 20)
+    leaves = [x.detach().requires_grad_(True) for x in (dots, pre, post)]
+    out = sandwich(*leaves)
+    van_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 20)
+    mat, vec, mix = dots.numel() * 4, vecs.numel() * 4, 2 * h * h * 4
+    nn = dots.numel()
+    t["fwd_bound"], t["fwd_by"] = bound_ms(2 * mat + vec + mix, 0, nn * (4 + 4 * 3 + 4 * h))
+    t["bwd_bound"], t["bwd_by"] = bound_ms(3 * mat + vec + 2 * mix, 0, nn * (8 + 4 * 3 + 8 * h))
+    log(f"timing: talking_heads f32 {list(shape)} (3, final) ms: fwd {t['fwd']:.4f} (plain "
+        f"{t['fwd_plain']:.4f}, bound {t['fwd_bound']:.4f} {t['fwd_by']}) bwd {t['bwd']:.4f} "
+        f"(plain {t['bwd_plain']:.4f}, bound {t['bwd_bound']:.4f} {t['bwd_by']}); vanilla "
+        f"sandwich (einsum, softmax, einsum) fwd {van_fwd:.4f} bwd {van_bwd:.4f}")
+    del dots, g, pre, post, vecs, leaves, out
+    torch.cuda.empty_cache()
+    return t
+
+
 def kernel_entry(name, src, replaces, launches, err, t, direction):
     """One row of the {"kernels": [...]} line: the robust (3, final) times."""
     return {"name": name, "route": "cuda", "source": CSRC + src, "replaces": PALLAS + replaces,
@@ -865,6 +1051,7 @@ def main() -> int:
     from noise_robust_vit_tpu_torch.ops.cuda import build
     from noise_robust_vit_tpu_torch.ops.cuda import packed_attention as pa
     from noise_robust_vit_tpu_torch.ops.cuda import sinkhorn_softmax as ss
+    from noise_robust_vit_tpu_torch.ops.cuda import talking_heads as th
 
     t0 = time.perf_counter()
     lib_path = build.build()
@@ -874,10 +1061,12 @@ def main() -> int:
     worst = phase_kernels(pa, torch, dev)
     worst_b = phase_biased_kernels(ba, torch, dev)
     worst_s = phase_sinkhorn_kernels(ss, torch, dev)
+    worst_t = phase_th_kernels(th, torch, dev)
     torch.cuda.synchronize()
     phase_small_model(torch, dev)
     phase_small_swin(ba, torch, dev)
     phase_small_levit(ba, ss, torch, dev)
+    phase_small_cait(th, torch, dev)
     torch.cuda.synchronize()
     counts = phase_train({"packed": pa.launches}, torch, dev, "simple_vit_b16",
                          {True: {"packed": 12}, False: {"packed": 12}})["packed"]
@@ -890,11 +1079,16 @@ def main() -> int:
                             False: {"biased": 0, "rect": 0, "square": 0}})
     phase_levit_256(ba, ss, torch, dev)
     counts_sq = phase_square_path(ss, torch, dev)
+    cait_counts = {"talking_heads": th.launches, "square": ss.launches, "rect": ss.launches_rect}
+    counts_t = phase_train(cait_counts, torch, dev, "cait",
+                           {True: {"talking_heads": 6, "square": 0, "rect": 0},
+                            False: {"talking_heads": 0, "square": 0, "rect": 0}})
     torch.cuda.synchronize()
     ktimes = phase_kernel_times(pa, torch, dev)
     btimes = phase_biased_times(ba, torch, dev)
     phase_biased_levit_times(ba, torch, dev)
     stimes = phase_sinkhorn_times(ss, torch, dev)
+    ttimes = phase_th_times(th, torch, dev)
     torch.cuda.synchronize()
     phase_step_times(torch, dev, "simple_vit_b16", 256, vit_train_flops_per_image())
     macs = swin_fwd_macs_per_image()
@@ -908,10 +1102,18 @@ def main() -> int:
     log(f"timing: LeViT_128S forward {macs_l / 1e6:.4f} M MACs per image (the LeViT paper "
         f"publishes 305 M FLOPs, counted as multiply-adds; gap {macs_l / 305e6 - 1:+.4%})")
     phase_step_times(torch, dev, "levit", 256, 3 * 2 * macs_l)
+    from noise_robust_vit_tpu_torch.models.cait import cait_macs_per_image
+
+    macs_c = cait_macs_per_image(create_model("cait", num_classes=1000, device="meta"))
+    log(f"timing: cait forward {macs_c / 1e9:.4f} GMACs per image (patch projection, every "
+        f"Dense, q·kᵀ and attn·v of both stages, head)")
+    rates_c = phase_step_times(torch, dev, "cait", 128, 3 * 2 * macs_c)
+    log(f"timing: cait robust/vanilla img/s ratio {rates_c[True] / rates_c[False]:.4f}")
     torch.cuda.synchronize()
     phase_profile(torch, dev, "simple_vit_b16", 256)
     phase_profile(torch, dev, "swin_t", 128)
     phase_profile(torch, dev, "levit", 256)
+    phase_profile(torch, dev, "cait", 128)
 
     kernels = [
         kernel_entry("packed_attention_fwd", "packed_attention_fwd.cu", "block_attention.py:234",
@@ -932,6 +1134,10 @@ def main() -> int:
         kernel_entry("sinkhorn_softmax_rect_bwd", "sinkhorn_softmax_bwd.cu",
                      "sinkhorn_softmax.py:537", counts_l["rect"]["bwd"], worst_s["rect", "bwd"],
                      stimes["rect"], "bwd"),
+        kernel_entry("talking_heads_fwd", "talking_heads_fwd.cu", "talking_heads.py:175",
+                     counts_t["talking_heads"]["fwd"], worst_t["fwd"], ttimes, "fwd"),
+        kernel_entry("talking_heads_bwd", "talking_heads_bwd.cu", "talking_heads.py:208",
+                     counts_t["talking_heads"]["bwd"], worst_t["bwd"], ttimes, "bwd"),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -7,8 +7,8 @@ CPU tensors.
 """
 
 from .convert import convert_params
-from .models import LeViT, SimpleViT, SwinTransformer, create_model
+from .models import CaiT, LeViT, SimpleViT, SwinTransformer, create_model
 from .ops import biased_attention, packed_attention
 
-__all__ = ["LeViT", "SimpleViT", "SwinTransformer", "biased_attention", "convert_params",
+__all__ = ["CaiT", "LeViT", "SimpleViT", "SwinTransformer", "biased_attention", "convert_params",
            "create_model", "packed_attention"]

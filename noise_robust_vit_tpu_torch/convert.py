@@ -17,7 +17,10 @@ Paths map by name, because the port's modules carry the flax names
   ``running_mean`` and ``running_var``;
 * any other named leaf is a parameter of the module itself and keeps its
   name and layout (Swin's ``relative_position_bias_table``, v2's
-  ``qkv_bias`` and ``logit_scale``, LeViT's ``attention_biases``).
+  ``qkv_bias`` and ``logit_scale``, LeViT's ``attention_biases``, CaiT's
+  LayerScale ``scale_attn_{i}`` / ``scale_ff_{i}``, its head mixes
+  ``mix_heads_pre_attn`` / ``mix_heads_post_attn``, ``pos_embedding`` and
+  ``cls_token``).
 
 Only numpy is needed on the way in, so this imports where JAX is absent.
 """

@@ -1,9 +1,10 @@
 """Models of the port (counterpart of ``noise_robust_vit_tpu/models``)."""
 
+from .cait import CaiT
 from .factory import create_model, register_model
 from .levit import LeViT, fuse_levit_variables
 from .simple_vit import SimpleViT
 from .swin import SwinTransformer
 
-__all__ = ["LeViT", "SimpleViT", "SwinTransformer", "create_model", "fuse_levit_variables",
+__all__ = ["CaiT", "LeViT", "SimpleViT", "SwinTransformer", "create_model", "fuse_levit_variables",
            "register_model"]

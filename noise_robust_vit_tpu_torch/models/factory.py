@@ -1,13 +1,13 @@
 """Architecture registry: name → constructor (counterpart of
 ``noise_robust_vit_tpu/models/factory.py``; the port's entries so far are
-``simple_vit``, ``simple_vit_b16``, the Swin v1/v2 builders and the LeViT
-builders, with ``levit`` for LeViT-128S). Every entry accepts
+``simple_vit``, ``simple_vit_b16``, the Swin v1/v2 builders, the LeViT
+builders, with ``levit`` for LeViT-128S, and ``cait``). Every entry accepts
 ``(num_classes, image_size, robust, dtype, device)``.
 ``create_model`` builds on the card unless ``device`` names another (it
 raises when there is no card), draws the initial weights from a
 ``torch.Generator`` seeded with ``seed``, and gives the stochastic-depth
-layers a generator seeded with ``seed + 1``. On the meta device nothing is
-drawn."""
+layers (``DropPath``, CaiT's whole-layer dropout) a generator seeded with
+``seed + 1``. On the meta device nothing is drawn."""
 
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 
 from ..utils import resolve_device
 from . import levit, swin
+from .cait import CaiT, _Transformer as _CaiTStage
 from .layers import DropPath, init_params
 from .simple_vit import SimpleViT
 
@@ -50,7 +51,7 @@ def create_model(name: str, *, num_classes: int, image_size: int = 224,
     drop_generator = torch.Generator(device=device)
     drop_generator.manual_seed(seed + 1)
     for m in model.modules():
-        if isinstance(m, DropPath):
+        if isinstance(m, (DropPath, _CaiTStage)):
             m.generator = drop_generator
     return model
 
@@ -86,3 +87,16 @@ for _name in ("swin_t", "swin_s", "swin_b", "swin_v2_t", "swin_v2_s", "swin_v2_b
 for _name in ("LeViT_128S", "LeViT_128", "LeViT_192", "LeViT_256", "LeViT_384"):
     register_model(_name)(getattr(levit, _name))
 register_model("levit")(levit.LeViT_128S)  # the fork's arch switch name
+
+
+@register_model("cait")
+def _cait(num_classes, image_size, robust, dtype, device=None, **kw):
+    """CaiT as the JAX factory builds it (JAX factory.py:265-273): patch 16
+    (4 at ≤ 64 px), dim 512, depth 6, cls_depth 2, 8 heads of 64, MLP 1024,
+    no dropout."""
+    return CaiT(
+        image_size=image_size, patch_size=kw.pop("patch_size", 4 if image_size <= 64 else 16),
+        num_classes=num_classes, dim=kw.pop("dim", 512), depth=kw.pop("depth", 6),
+        cls_depth=kw.pop("cls_depth", 2), heads=kw.pop("heads", 8),
+        mlp_dim=kw.pop("mlp_dim", 1024), robust=robust, dtype=dtype, device=device, **kw,
+    )

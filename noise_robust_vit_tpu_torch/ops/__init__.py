@@ -15,6 +15,7 @@ from .sinkhorn import (
     sinkhorn_attention,
     sinkhorn_normalize,
     sinkhorn_scalings,
+    talking_heads_robust_softmax,
 )
 
 __all__ = [
@@ -30,4 +31,5 @@ __all__ = [
     "sinkhorn_attention",
     "sinkhorn_normalize",
     "sinkhorn_scalings",
+    "talking_heads_robust_softmax",
 ]

@@ -21,12 +21,11 @@ with their launch counts, and ``BiasedAttention``, the autograd function.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from .build import LaunchCounts, ptr, raise_on
+from .build import LaunchCounts, ptr, raise_on, stream
 from .plain import attention_bwd_plain, attention_fwd_plain, num_vecs
 
 __all__ = [
@@ -167,10 +166,6 @@ def _check(q, k, v, bias, nw, iters, no_bias):
                          f"DV={v.shape[-1]} nW={nw} iters={iters} is outside the gate")
 
 
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
 def biased_attention_fwd_cuda(q, k, v, bias, scale, robust=False, iters=3,
                               final_row=True, nw=1, no_bias=False):
     """Launch the forward kernel; returns ``(out, vecs)`` like the plain
@@ -189,7 +184,7 @@ def biased_attention_fwd_cuda(q, k, v, bias, scale, robust=False, iters=3,
         err = lib.nrv_biased_attention_fwd(
             ptr(q), ptr(k), ptr(v), ptr(None if no_bias else bias), ptr(out), ptr(vecs),
             _DTYPE_CODES[q.dtype], bw, h, n, d, dv, nw, float(scale), int(robust),
-            int(iters), int(final_row), _stream(q.device))
+            int(iters), int(final_row), stream(q.device))
     raise_on(err, "biased attention forward kernel")
     launches.fwd += 1
     return out, vecs
@@ -238,7 +233,7 @@ def biased_attention_bwd_cuda(q, k, v, bias, dout, vecs, scale, robust=False,
             ptr(q), ptr(k), ptr(v), ptr(None if no_bias else bias), ptr(dout),
             ptr(vecs), ptr(dq), ptr(dk), ptr(dv), ptr(partial), ptr(dbias),
             _DTYPE_CODES[q.dtype], bw, h, n, d, dv_dim, nw, float(scale), int(robust),
-            int(iters), int(final_row), chunks, per, _stream(q.device))
+            int(iters), int(final_row), chunks, per, stream(q.device))
     raise_on(err, "biased attention backward kernel")
     launches.bwd += 1
     return dq, dk, dv, dbias

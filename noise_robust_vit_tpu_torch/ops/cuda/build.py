@@ -23,8 +23,8 @@ from typing import TYPE_CHECKING
 if TYPE_CHECKING:
     import torch
 
-__all__ = ["LaunchCounts", "build", "build_dir", "error_string", "load_library",
-           "ptr", "raise_on", "sources"]
+__all__ = ["LaunchCounts", "build", "build_dir", "by_device", "check_operand", "error_string",
+           "load_library", "ptr", "raise_on", "sources", "stream"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -61,6 +61,11 @@ _ENTRIES = {
     # logits, g, va, vb, ds, scratch, dtype, K, NR, NC, iters, final_row,
     # blocks, stream
     "nrv_sinkhorn_softmax_rect_bwd": ([_VP] * 6 + [_I] * 7 + [_VP]),
+    # dots, pre, post, out, vecs, w, dtype, B, H, N, iters, final_row, stream
+    "nrv_talking_heads_fwd": ([_VP] * 6 + [_I] * 6 + [_VP]),
+    # dots, g, vecs, pre, post, ds, dpre, dpost, dm, part, dtype, B, H, N,
+    # iters, final_row, stream
+    "nrv_talking_heads_bwd": ([_VP] * 10 + [_I] * 6 + [_VP]),
     "nrv_cuda_error_string": ([_I]),
 }
 
@@ -136,6 +141,36 @@ def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
 def raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} failed: CUDA error {err} ({error_string(err)})")
+
+
+def stream(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``, for a C entry point."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_operand(kernel: str, name: str, t: torch.Tensor, like: torch.Tensor,
+                  dtype=None, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte aligned tensor of
+    ``dtype`` (``like``'s by default) on ``like``'s device, and of
+    ``shape`` when one is given."""
+    dtype = dtype or like.dtype
+    if t.device != like.device or t.dtype != dtype or not t.is_contiguous() \
+            or t.data_ptr() % 16:
+        raise ValueError(f"{kernel} kernel: {name} must be a contiguous, 16-byte "
+                         f"aligned {dtype} tensor on {like.device}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel} kernel: {name} {tuple(t.shape)} is not {list(shape)}")
+
+
+def by_device(cuda_fn, plain_fn, x: torch.Tensor, *args):
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if x.is_cuda:
+        return cuda_fn(x, *args)
+    if x.device.type != "cpu":
+        raise ValueError(f"no kernel path for device {x.device}")
+    return plain_fn(x, *args)
 
 
 class LaunchCounts:

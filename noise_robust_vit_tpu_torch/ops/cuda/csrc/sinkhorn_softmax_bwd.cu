@@ -33,43 +33,10 @@
 
 namespace nrv {
 
-// Floats of shared memory after the matrix: ones (max(nr, nc)), the ka
-// a-rows (nr), the iters b-rows (nc), lse, da (nr), db_row (nc), svec,
-// m_dc, row_term (nr), the iters dc (nc) and iters dr (nr) vectors.
-__host__ __device__ inline size_t sinkhorn_softmax_bwd_vector_floats(int nr, int nc,
-                                                                     int iters, int ka) {
-  return (size_t)(nr > nc ? nr : nc) + (size_t)(ka + iters + 5) * nr +
-         (size_t)(2 * iters + 1) * nc;
-}
-
 inline size_t sinkhorn_softmax_bwd_smem_bytes(int nr, int nc, int iters, int ka,
                                               bool matrix_in_smem) {
   return sizeof(float) * ((matrix_in_smem ? (size_t)nr * padded_ld(nc) : 0) +
-                          sinkhorn_softmax_bwd_vector_floats(nr, nc, iters, ka));
-}
-
-// post(j, Σ_i f(i, j)) for every column j < nc: the rows are dealt out to
-// groups of whole warps, as in cols_partials, and each column's group
-// partials are added in a fixed order. `part` holds kThreads floats.
-template <class F, class Post>
-__device__ void cols_sum(int nr, int nc, float* part, F f, Post post) {
-  const int cw = min((nc + 31) / 32 * 32, kThreads);
-  const int groups = kThreads / cw;
-  const int jj = threadIdx.x % cw, grp = threadIdx.x / cw;
-  for (int j0 = 0; j0 < nc; j0 += cw) {
-    const int j = j0 + jj;
-    float s = 0.f;
-    if (grp < groups && j < nc)
-      for (int i = grp; i < nr; i += groups) s += f(i, j);
-    part[threadIdx.x] = s;
-    __syncthreads();
-    if (threadIdx.x < cw && j < nc) {
-      float t = 0.f;
-      for (int g = 0; g < groups; ++g) t += part[g * cw + threadIdx.x];
-      post(j, t);
-    }
-    __syncthreads();
-  }
+                          bwd_vector_floats(nr, nc, iters, ka));
 }
 
 template <typename T>
@@ -84,77 +51,35 @@ sinkhorn_softmax_bwd_kernel(const T* __restrict__ s_all, const T* __restrict__ g
   const int ld = padded_ld(nc);
   const int ka = num_arows(iters, final_row);
   float* P = scratch ? scratch + (size_t)blockIdx.x * nr * ld : smem;  // A
-  float* vbase = scratch ? smem : smem + (size_t)nr * ld;
-  float* ones = vbase;
-  float* arows = ones + (nr > nc ? nr : nc);
-  float* brows = arows + (size_t)ka * nr;
-  float* lse = brows + (size_t)iters * nc;
-  float* da = lse + nr;
-  float* db_row = da + nr;
-  float* svec = db_row + nc;
-  float* m_dc = svec + nr;
-  float* row_term = m_dc + nr;
-  float* dcs = row_term + nr;
-  float* drs = dcs + (size_t)iters * nc;
-  const int* tu = s_tu;
-  const int* tv = s_tv;
-  const float* a_fin = ka > 0 ? arows + (size_t)(ka - 1) * nr : ones;
-  const float* b_fin = brows + (size_t)(iters - 1) * nc;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const BwdVectors v = bwd_vectors(scratch ? smem : smem + (size_t)nr * ld, nr, nc, iters, ka);
 
-  for (int i = threadIdx.x; i < (nr > nc ? nr : nc); i += kThreads) ones[i] = 1.f;
+  for (int i = threadIdx.x; i < (nr > nc ? nr : nc); i += kThreads) v.ones[i] = 1.f;
   for (int item = blockIdx.x; item < K; item += gridDim.x) {
     const size_t off = (size_t)item * nr * nc;
     const T* s = s_all + off;
     const T* g = g_all + off;
     T* ds = ds_all + off;
-    const ResidualRows<const float> res = residual_rows(va, vb, item, nr, nc, iters, ka, rect);
-    // the scaling vectors from the residual rows (_restore_vec_rows)
-    for (int idx = threadIdx.x; idx < ka * nr; idx += kThreads) arows[idx] = res.a[idx];
-    for (int idx = threadIdx.x; idx < iters * nc; idx += kThreads) brows[idx] = res.b[idx];
-    for (int i = threadIdx.x; i < nr; i += kThreads) lse[i] = res.lse[i];
-    __syncthreads();
+    load_residual_rows(residual_rows(va, vb, item, nr, nc, iters, ka, rect), v, nr, nc, iters,
+                       ka);
+    const float* lse = v.lse;
     load_matrix(s, nr, nc, ld, P, [=](int i, float x) { return expf(x - lse[i]); });
-
-    // da = (A ⊙ g)·b: a warp per row
-    for (int i = warp; i < nr; i += kWarps) {
-      const float* p = P + (size_t)i * ld;
-      const T* gi = g + (size_t)i * nc;
-      float acc = 0.f;
-      for (int j = lane; j < nc; j += 32) acc = fmaf(p[j] * to_f(gi[j]), b_fin[j], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) da[i] = acc;
-    }
-    // db = (A ⊙ g)ᵀ·a
-    cols_sum(
-        nr, nc, part,
-        [=](int i, int j) { return P[(size_t)i * ld + j] * to_f(g[(size_t)i * nc + j]) * a_fin[i]; },
-        [=](int j, float t) { db_row[j] = t; });
-
-    const int nt = sinkhorn_reverse_chain(P, nr, nc, ld, iters, final_row != 0, vbase, ones,
-                                          arows, brows, da, db_row, svec, m_dc, dcs, drs,
-                                          s_tu, s_tv);
-    for (int i = threadIdx.x; i < nr; i += kThreads) row_term[i] = a_fin[i] * da[i] + svec[i];
-    __syncthreads();
+    const int nt = sinkhorn_bwd_vectors(P, g, nr, nc, ld, iters, final_row, v, part, s_tu, s_tv);
 
     // ds = A ⊙ ((a ⊙ g ⊙ bᵀ − row term) + Σ_k u_k v_kᵀ)
-    auto entry = [&](int i, int j, float p, float gij) {
-      float r1 = 0.f;
-      for (int t = 0; t < nt; ++t) r1 = fmaf(vbase[tu[t] + i], vbase[tv[t] + j], r1);
-      return p * ((a_fin[i] * gij * b_fin[j] - row_term[i]) + r1);
-    };
     if (nc % 4 == 0) {
       for (int r = threadIdx.x; r < nr * nc / 4; r += kThreads) {
         const int f = 4 * r, i = f / nc, j = f - i * nc;
         const float4 p = *reinterpret_cast<const float4*>(P + (size_t)i * ld + j);
         const float4 gv = value(run4(g + f));
-        store4(ds + f, make_float4(entry(i, j, p.x, gv.x), entry(i, j + 1, p.y, gv.y),
-                                   entry(i, j + 2, p.z, gv.z), entry(i, j + 3, p.w, gv.w)));
+        store4(ds + f, make_float4(ds_entry(v, s_tu, s_tv, nt, i, j, p.x, gv.x),
+                                   ds_entry(v, s_tu, s_tv, nt, i, j + 1, p.y, gv.y),
+                                   ds_entry(v, s_tu, s_tv, nt, i, j + 2, p.z, gv.z),
+                                   ds_entry(v, s_tu, s_tv, nt, i, j + 3, p.w, gv.w)));
       }
     } else {
       for (int f = threadIdx.x; f < nr * nc; f += kThreads) {
         const int i = f / nc, j = f - i * nc;
-        store_f(ds + f, entry(i, j, P[(size_t)i * ld + j], to_f(g[f])));
+        store_f(ds + f, ds_entry(v, s_tu, s_tv, nt, i, j, P[(size_t)i * ld + j], to_f(g[f])));
       }
     }
     __syncthreads();  // the next item overwrites A and the vectors

@@ -28,12 +28,10 @@ a launch count for each form, and the autograd functions
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..sinkhorn import clamped_recip
-from .build import LaunchCounts, ptr, raise_on
+from .build import LaunchCounts, by_device, check_operand, ptr, raise_on, stream
 from .plain import _reverse_chain_inner, num_vecs
 
 __all__ = [
@@ -152,11 +150,12 @@ def _fwd_math(s, iters, final_row):
     return e * a_scale * b, a_rows, b_rows, lse_row
 
 
-def _bwd_math(s, g, a_rows, b_rows, lse, iters, final_row):
+def _bwd_math(s, g, a_rows, b_rows, lse, iters, final_row, want_out=False):
     """``ds [K, NR, NC]`` from the upstream gradient ``g`` on the normalized
     matrix and the stored rows (``a_rows [K, ka, NR]``, ``b_rows
     [K, iters, NC]``, ``lse [K, NR]``): the direct grads dA = a⊙g⊙bᵀ,
-    da = (A⊙g)·b, db = (A⊙g)ᵀ·a, then the reverse chain."""
+    da = (A⊙g)·b, db = (A⊙g)ᵀ·a, then the reverse chain. With
+    ``want_out``, ``(ds, out)``: the normalized matrix a⊙A⊙bᵀ comes too."""
     kb, nr, nc = s.shape
     attn = torch.exp(s - lse[:, :, None])
     ones_r = torch.ones(kb, 1, nr, dtype=torch.float32, device=s.device)
@@ -171,6 +170,8 @@ def _bwd_math(s, g, a_rows, b_rows, lse, iters, final_row):
     dA = (a_fin * g) * b_fin
     inner = _reverse_chain_inner(attn, dA, da, db_row, a_fin * da, as_r, bs_r, iters,
                                  final_row)
+    if want_out:
+        return attn * inner, attn * a_fin * b_fin
     return attn * inner
 
 
@@ -209,12 +210,8 @@ def sinkhorn_softmax_rect_bwd_plain(logits, g, va, vb, iters=3, final_row=True):
 # CUDA kernels (csrc/sinkhorn_softmax_{fwd,bwd}.cu)
 # --------------------------------------------------------------------------
 
-def _check(name, t, like, dtype=None):
-    dtype = dtype or like.dtype
-    if t.device != like.device or t.dtype != dtype or not t.is_contiguous() \
-            or t.data_ptr() % 16:
-        raise ValueError(f"sinkhorn softmax kernel: {name} must be a contiguous, 16-byte "
-                         f"aligned {dtype} tensor on {like.device}")
+def _check(name, t, like, dtype=None, shape=None):
+    check_operand("sinkhorn softmax", name, t, like, dtype, shape)
 
 
 def _check_logits(logits, iters, rect):
@@ -245,10 +242,6 @@ def _scratch(logits, k, iters):
                        device=logits.device), blocks
 
 
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
 def _launch(fn_name, what, logits, tensors, k, dims, iters, final_row):
     from .build import load_library
 
@@ -256,7 +249,7 @@ def _launch(fn_name, what, logits, tensors, k, dims, iters, final_row):
     with torch.cuda.device(logits.device):
         err = getattr(load_library(), fn_name)(
             *(ptr(t) for t in tensors), ptr(scratch), _DTYPE_CODES[logits.dtype], k, *dims,
-            int(iters), int(final_row), blocks, _stream(logits.device))
+            int(iters), int(final_row), blocks, stream(logits.device))
     raise_on(err, what)
 
 
@@ -276,14 +269,8 @@ def sinkhorn_softmax_fwd_cuda(logits, iters=3, final_row=True):
 def sinkhorn_softmax_bwd_cuda(logits, g, vecs, iters=3, final_row=True):
     """Launch the square backward kernel; returns d logits."""
     k, n, _ = _check_logits(logits, iters, rect=False)
-    _check("g", g, logits)
-    if g.shape != logits.shape:
-        raise ValueError(f"sinkhorn softmax kernel: g {tuple(g.shape)} is not "
-                         f"{tuple(logits.shape)}")
-    _check("vecs", vecs, logits, torch.float32)
-    if tuple(vecs.shape) != (k, num_vecs(iters, final_row, True), n):
-        raise ValueError(f"sinkhorn softmax kernel: vecs {tuple(vecs.shape)} is not "
-                         f"[{k}, {num_vecs(iters, final_row, True)}, {n}]")
+    _check("g", g, logits, shape=logits.shape)
+    _check("vecs", vecs, logits, torch.float32, (k, num_vecs(iters, final_row, True), n))
     ds = torch.empty_like(logits)
     _launch("nrv_sinkhorn_softmax_bwd", "sinkhorn softmax backward kernel", logits,
             (logits, g, vecs, ds), k, (n,), iters, final_row)
@@ -312,15 +299,9 @@ def sinkhorn_softmax_rect_fwd_cuda(logits, iters=3, final_row=True):
 def sinkhorn_softmax_rect_bwd_cuda(logits, g, va, vb, iters=3, final_row=True):
     """Launch the rectangular backward kernel; returns d logits."""
     k, nr, nc = _check_logits(logits, iters, rect=True)
-    _check("g", g, logits)
-    if g.shape != logits.shape:
-        raise ValueError(f"sinkhorn softmax kernel: g {tuple(g.shape)} is not "
-                         f"{tuple(logits.shape)}")
+    _check("g", g, logits, shape=logits.shape)
     for name, t, shape in zip(("va", "vb"), (va, vb), _rect_rows(k, nr, nc, iters, final_row)):
-        _check(name, t, logits, torch.float32)
-        if tuple(t.shape) != shape:
-            raise ValueError(f"sinkhorn softmax kernel: {name} {tuple(t.shape)} is not "
-                             f"{list(shape)}")
+        _check(name, t, logits, torch.float32, shape)
     ds = torch.empty_like(logits)
     _launch("nrv_sinkhorn_softmax_rect_bwd", "sinkhorn softmax rect backward kernel",
             logits, (logits, g, va, vb, ds), k, (nr, nc), iters, final_row)
@@ -328,32 +309,23 @@ def sinkhorn_softmax_rect_bwd_cuda(logits, g, va, vb, iters=3, final_row=True):
     return ds
 
 
-def _by_device(cuda_fn, plain_fn, x, *args):
-    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
-    if x.is_cuda:
-        return cuda_fn(x, *args)
-    if x.device.type != "cpu":
-        raise ValueError(f"sinkhorn softmax: no path for device {x.device}")
-    return plain_fn(x, *args)
-
-
 def sinkhorn_softmax_fwd(logits, iters=3, final_row=True):
-    return _by_device(sinkhorn_softmax_fwd_cuda, sinkhorn_softmax_fwd_plain, logits, iters,
+    return by_device(sinkhorn_softmax_fwd_cuda, sinkhorn_softmax_fwd_plain, logits, iters,
                       final_row)
 
 
 def sinkhorn_softmax_bwd(logits, g, vecs, iters=3, final_row=True):
-    return _by_device(sinkhorn_softmax_bwd_cuda, sinkhorn_softmax_bwd_plain, logits, g, vecs,
+    return by_device(sinkhorn_softmax_bwd_cuda, sinkhorn_softmax_bwd_plain, logits, g, vecs,
                       iters, final_row)
 
 
 def sinkhorn_softmax_rect_fwd(logits, iters=3, final_row=True):
-    return _by_device(sinkhorn_softmax_rect_fwd_cuda, sinkhorn_softmax_rect_fwd_plain, logits,
+    return by_device(sinkhorn_softmax_rect_fwd_cuda, sinkhorn_softmax_rect_fwd_plain, logits,
                       iters, final_row)
 
 
 def sinkhorn_softmax_rect_bwd(logits, g, va, vb, iters=3, final_row=True):
-    return _by_device(sinkhorn_softmax_rect_bwd_cuda, sinkhorn_softmax_rect_bwd_plain, logits,
+    return by_device(sinkhorn_softmax_rect_bwd_cuda, sinkhorn_softmax_rect_bwd_plain, logits,
                       g, va, vb, iters, final_row)
 
 

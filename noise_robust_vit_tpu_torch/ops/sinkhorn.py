@@ -16,6 +16,7 @@ __all__ = [
     "sinkhorn_normalize",
     "sinkhorn_attention",
     "robust_softmax",
+    "talking_heads_robust_softmax",
 ]
 
 
@@ -96,3 +97,28 @@ def robust_softmax(logits: torch.Tensor, robust: bool = False,
     if not robust:
         return torch.softmax(logits, dim=axis)
     return sinkhorn_attention(logits, axis=axis, num_iters=3, final_row_norm=True)
+
+
+def talking_heads_robust_softmax(dots: torch.Tensor, mix_pre: torch.Tensor,
+                                 mix_post: torch.Tensor, robust: bool = False
+                                 ) -> torch.Tensor:
+    """CaiT's talking-heads sandwich (ref cait.py:110-119): pre-softmax head
+    mix → (softmax | Sinkhorn, 3 iterations + final row norm) → post-softmax
+    head mix, on ``dots [B, H, N, N]`` with ``mix_* [H, H]`` cast to the
+    dots' dtype (counterpart of the JAX ``talking_heads_robust_softmax``).
+
+    Robust shapes inside the talking-heads gate take ``TalkingHeadsSinkhorn``
+    (the CUDA kernels for a CUDA tensor, the plain version for a CPU one);
+    the rest, vanilla included, take einsum → ``robust_softmax`` → einsum.
+    The choice is made on shape and dtype before the call. Callers with
+    attention dropout between the normalization and the post-mix take the
+    unfused path themselves: the fused one has no dropout point."""
+    pre, post = mix_pre.to(dots.dtype), mix_post.to(dots.dtype)
+    if robust:
+        # imported here: the kernels' module imports this one
+        from .cuda import talking_heads as th
+
+        if th.talking_heads_supported(dots.shape, 3, dots.dtype):
+            return th.TalkingHeadsSinkhorn.apply(dots, pre, post, 3, True)
+    attn = robust_softmax(torch.einsum("bhij,hg->bgij", dots, pre), robust=robust)
+    return torch.einsum("bhij,hg->bgij", attn, post)

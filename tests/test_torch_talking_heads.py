@@ -1,0 +1,302 @@
+"""The port's talking-heads Sinkhorn (pre-mix → softmax + Sinkhorn →
+post-mix) against the JAX package's Pallas kernel.
+
+On the CPU the port runs its plain PyTorch versions (the forward and the
+hand-derived backward from the stored residual rows); the JAX side runs
+``talking_heads_sinkhorn`` in interpret mode, as
+``tests/test_talking_heads.py`` does. Both get the same numpy dots, mixes
+and upstream gradient. Tolerances, float32, the JAX suite's own
+(``tests/test_talking_heads.py``): values atol 2e-6 / rtol 2e-5, gradients
+atol and rtol 5e-5.
+
+The ``gpu`` cases compare the CUDA kernels with the plain versions on the
+card and skip where there is none. JAX is imported only by the tests that
+compare with it, so the file also runs where JAX is absent:
+
+    python -m pytest --noconftest tests/test_torch_talking_heads.py -m gpu
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from noise_robust_vit_tpu_torch import ops
+from noise_robust_vit_tpu_torch.ops.cuda import sinkhorn_softmax as ss
+from noise_robust_vit_tpu_torch.ops.cuda import talking_heads as th
+
+torch.set_num_threads(1)
+
+# (sinkhorn_iters, final_row_norm)
+SCHEDULES = [(3, True), (4, False)]
+SCHEDULE_IDS = ["3-final", "4"]
+VALUES = dict(atol=2e-6, rtol=2e-5)
+GRADS = dict(atol=5e-5, rtol=5e-5)
+
+
+def _inputs(seed, b=2, h=4, n=21, scale=2.0):
+    """dots, pre, post and the upstream gradient, float32, from a seed."""
+    rng = np.random.default_rng(seed)
+    dots = (scale * rng.standard_normal((b, h, n, n))).astype(np.float32)
+    pre, post = (rng.standard_normal((h, h)).astype(np.float32) for _ in range(2))
+    return dots, pre, post, rng.standard_normal((b, h, n, n)).astype(np.float32)
+
+
+def _unfused(dots, pre, post, iters, final_row):
+    """einsum → softmax + the vector-form Sinkhorn → einsum, in torch."""
+    mixed = torch.einsum("bhij,hg->bgij", dots, pre)
+    attn = ops.sinkhorn_normalize(torch.softmax(mixed, -1), iters, final_row)
+    return torch.einsum("bhij,hg->bgij", attn, post)
+
+
+@pytest.fixture
+def jx():
+    """The JAX reference: jax, jax.numpy and the Pallas kernel module."""
+    jax = pytest.importorskip("jax")
+    from noise_robust_vit_tpu.ops.pallas import talking_heads as jth
+
+    return types.SimpleNamespace(jax=jax, jnp=jax.numpy, th=jth)
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES, ids=SCHEDULE_IDS)
+@pytest.mark.parametrize("n", [21, 24])  # ragged rows, and runs of four
+def test_plain_forward_matches_jax_kernel(jx, n, schedule):
+    iters, final_row = schedule
+    dots, pre, post, _ = _inputs(0, n=n)
+    want = jx.th.talking_heads_sinkhorn(jx.jnp.asarray(dots), jx.jnp.asarray(pre),
+                                        jx.jnp.asarray(post), iters, final_row, True)
+    out, _ = th.talking_heads_fwd_plain(*map(torch.from_numpy, (dots, pre, post)), iters,
+                                        final_row)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), **VALUES)
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES, ids=SCHEDULE_IDS)
+@pytest.mark.parametrize("n", [21, 24])
+def test_plain_residual_rows_match_jax_kernel(jx, n, schedule):
+    """The stored stack is the JAX kernel's, without its padding to the
+    8-row tile."""
+    iters, final_row = schedule
+    dots, pre, post, _ = _inputs(1, n=n)
+    _, vecs_j = jx.th._th_fwd_impl(jx.jnp.asarray(dots), jx.jnp.asarray(pre),
+                                   jx.jnp.asarray(post), iters, final_row, True, want_vecs=True)
+    _, vecs_t = th.talking_heads_fwd_plain(*map(torch.from_numpy, (dots, pre, post)), iters,
+                                           final_row)
+    b, h = dots.shape[:2]
+    r = ss.num_vecs(iters, final_row, True)
+    assert vecs_t.shape == (b * h, r, n)
+    want = np.asarray(vecs_j)[:, :, :r, :n].reshape(b * h, r, n)
+    np.testing.assert_allclose(vecs_t.numpy(), want, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES, ids=SCHEDULE_IDS)
+@pytest.mark.parametrize("n", [21, 24])
+def test_plain_gradients_match_jax_grad(jx, n, schedule):
+    """d dots, d pre and d post of the plain backward (through
+    ``TalkingHeadsSinkhorn`` on CPU tensors) against ``jax.grad`` of the
+    interpret-mode kernel."""
+    iters, final_row = schedule
+    dots, pre, post, tang = _inputs(2, n=n)
+
+    def loss(d, p, q):
+        return jx.jnp.sum(jx.th.talking_heads_sinkhorn(d, p, q, iters, final_row, True)
+                          * jx.jnp.asarray(tang))
+
+    want = jx.jax.grad(loss, argnums=(0, 1, 2))(*map(jx.jnp.asarray, (dots, pre, post)))
+    args = [torch.from_numpy(a).requires_grad_(True) for a in (dots, pre, post)]
+    th.TalkingHeadsSinkhorn.apply(*args, iters, final_row).backward(torch.from_numpy(tang))
+    for name, a, w in zip(("ddots", "dpre", "dpost"), args, want):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), err_msg=name, **GRADS)
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES, ids=SCHEDULE_IDS)
+def test_autograd_function_equals_unfused_torch(schedule):
+    """``TalkingHeadsSinkhorn`` (plain versions) against autograd through
+    the unfused torch sandwich: values and all three gradients."""
+    iters, final_row = schedule
+    dots, pre, post, tang = _inputs(3, h=3, n=13)
+    fused = [torch.from_numpy(a).requires_grad_(True) for a in (dots, pre, post)]
+    unfused = [torch.from_numpy(a).requires_grad_(True) for a in (dots, pre, post)]
+    out_f = th.TalkingHeadsSinkhorn.apply(*fused, iters, final_row)
+    out_u = _unfused(*unfused, iters, final_row)
+    torch.testing.assert_close(out_f, out_u, **VALUES)
+    out_f.backward(torch.from_numpy(tang))
+    out_u.backward(torch.from_numpy(tang))
+    for name, a, b in zip(("ddots", "dpre", "dpost"), fused, unfused):
+        torch.testing.assert_close(a.grad, b.grad, msg=name, **GRADS)
+
+
+def test_robust_softmax_dispatch(monkeypatch):
+    """``ops.talking_heads_robust_softmax``: robust square shapes inside the
+    gate go through ``TalkingHeadsSinkhorn`` and equal the unfused sandwich;
+    the CLS stage's one query row and a float16 input take the unfused one;
+    vanilla is einsum → softmax → einsum."""
+    calls = []
+    real = th.TalkingHeadsSinkhorn.apply
+    monkeypatch.setattr(th.TalkingHeadsSinkhorn, "apply", lambda x, *a: (
+        calls.append(tuple(x.shape)) or real(x, *a)))
+    dots, pre, post, _ = (torch.from_numpy(a) for a in _inputs(4, h=2, n=16))
+    fused = ops.talking_heads_robust_softmax(dots, pre, post, robust=True)
+    assert calls == [(2, 2, 16, 16)]
+    torch.testing.assert_close(fused, _unfused(dots, pre, post, 3, True), atol=5e-6, rtol=2e-5)
+    calls.clear()
+    vanilla = ops.talking_heads_robust_softmax(dots, pre, post, robust=False)
+    want = torch.einsum("bhij,hg->bgij",
+                        torch.softmax(torch.einsum("bhij,hg->bgij", dots, pre), -1), post)
+    torch.testing.assert_close(vanilla, want, atol=1e-6, rtol=1e-6)
+    row = dots[:, :, :1]  # [B, H, 1, N]: the CLS stage's logits
+    got = ops.talking_heads_robust_softmax(row, pre, post, robust=True)
+    torch.testing.assert_close(got, _unfused(row, pre, post, 3, True), atol=1e-6, rtol=1e-5)
+    ops.talking_heads_robust_softmax(dots.half(), pre, post, robust=True)
+    assert calls == []
+
+
+def test_cpu_tensor_takes_plain_version():
+    """A CPU tensor runs the plain versions: no kernel is built or
+    launched, none of the logits-interface kernels either."""
+    for counts in (th.launches, ss.launches, ss.launches_rect):
+        counts.reset()
+    dots, pre, post, _ = (torch.from_numpy(a).requires_grad_(True) for a in _inputs(5, n=9))
+    ops.talking_heads_robust_softmax(dots, pre, post, robust=True).sum().backward()
+    assert all((c.fwd, c.bwd) == (0, 0) for c in (th.launches, ss.launches, ss.launches_rect))
+    assert pre.grad is not None and post.grad is not None
+
+
+@pytest.mark.parametrize("shape,iters,ok", [
+    ((2, 4, 21, 21), 3, True),
+    ((128, 8, 196, 196), 3, True),      # CaiT @224
+    ((8, 16, 196, 196), 3, True),       # 16 heads (JAX's VMEM budget refuses it)
+    ((2, 8, 228, 228), 3, True),        # the largest matrix at 3 iterations
+    ((2, 8, 229, 229), 3, False),
+    ((2, 8, 197, 197), 8, True),
+    ((2, 4, 21, 20), 3, False),         # rectangular
+    ((4, 21, 21), 3, False),            # 3-D
+    ((2, 4, 1000, 1000), 3, False),     # beyond shared memory
+    ((2, 32, 196, 196), 3, False),      # too many heads
+    ((2, 8, 1, 197), 3, False),         # the CLS stage's one query row
+    ((2, 4, 21, 21), 9, False),         # more than 8 iterations
+    ((2, 4, 21, 21), 0, False),
+])
+def test_gate(shape, iters, ok):
+    """The port's gate is a shared-memory budget for one (image, mixed
+    head) matrix per block; it does not depend on H up to the kernels' 16.
+    JAX's budget holds all H planes of an image in VMEM at once, so it
+    refuses [·, 16, 196, 196] where the port takes it."""
+    assert th.talking_heads_supported(shape, iters) is ok
+    assert th.talking_heads_supported(shape, iters, torch.float16) is False
+
+
+def test_gate_agrees_with_jax_where_both_budgets_allow(jx):
+    for shape in [(2, 4, 21, 21), (2, 4, 21, 20), (4, 21, 21), (2, 4, 1000, 1000),
+                  (2, 32, 196, 196), (128, 8, 196, 196)]:
+        assert th.talking_heads_supported(shape, 3) is jx.th.talking_heads_supported(shape, 3)
+    assert not jx.th.talking_heads_supported((8, 16, 196, 196), 3)
+
+
+def test_cuda_wrapper_refuses_cpu_tensor():
+    dots, pre, post, _ = (torch.from_numpy(a) for a in _inputs(6, n=8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        th.talking_heads_fwd_cuda(dots, pre, post)
+
+
+# --------------------------------------------------------------------------
+# on the card: kernel against plain version
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _kernel_vs_plain(dots, g, pre, post, iters, final_row):
+    """(kernel, plain) results: (out, vecs, ds, dpre, dpost)."""
+    out_k, vecs_k = th.talking_heads_fwd_cuda(dots, pre, post, iters, final_row)
+    grads_k = th.talking_heads_bwd_cuda(dots, g, vecs_k, pre, post, iters, final_row)
+    out_p, vecs_p = th.talking_heads_fwd_plain(dots, pre, post, iters, final_row)
+    grads_p = th.talking_heads_bwd_plain(dots, g, vecs_p, pre, post, iters, final_row)
+    torch.cuda.synchronize()
+    return (out_k, vecs_k, *grads_k), (out_p, vecs_p, *grads_p)
+
+
+def _assert_kernel_matches(got, want):
+    """float32: out, vecs and d dots atol 1e-4 / rtol 1e-3, the sums run
+    in another order than the plain version's and the reverse chain
+    amplifies it; d pre and d post, sums over every image and entry, to
+    1e-4 of the tensor's largest magnitude. bfloat16 dots (math in float32):
+    out and d dots atol 2e-2 (one bf16 rounding of values of order one),
+    vecs 1e-3, d pre and d post 1e-3 of the largest magnitude."""
+    bf16 = got[0].dtype == torch.bfloat16
+    for i, (g, w) in enumerate(zip(got, want)):
+        if i >= 3:
+            scale = w.abs().max().item()
+            err = (g - w).abs().max().item()
+            assert err <= (1e-3 if bf16 else 1e-4) * scale, (i, err, scale)
+        elif i == 1:
+            torch.testing.assert_close(g, w, atol=1e-3 if bf16 else 1e-4, rtol=1e-3)
+        elif bf16:
+            torch.testing.assert_close(g.float(), w.float(), atol=2e-2, rtol=0, msg=f"output {i}")
+        else:
+            torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-3, msg=f"output {i}")
+
+
+def _card_inputs(cuda, seed, shape, dtype=torch.float32):
+    b, h, n, _ = shape
+    dots, pre, post, g = _inputs(seed, b, h, n)
+    return (torch.from_numpy(dots).to(cuda, dtype), torch.from_numpy(g).to(cuda, dtype),
+            torch.from_numpy(pre).to(cuda), torch.from_numpy(post).to(cuda))
+
+
+# CaiT's N, ragged N, 16 heads, the largest matrix at 4 iterations (224),
+# one head
+CARD_SHAPES = [(4, 8, 196, 196), (4, 8, 197, 197), (3, 4, 21, 21), (2, 16, 196, 196),
+               (2, 2, 224, 224), (5, 1, 7, 7)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("schedule", SCHEDULES, ids=SCHEDULE_IDS)
+@pytest.mark.parametrize("shape", CARD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernel_matches_plain(cuda, shape, schedule, dtype):
+    dots, g, pre, post = _card_inputs(cuda, 7, shape, dtype)
+    _assert_kernel_matches(*_kernel_vs_plain(dots, g, pre, post, *schedule))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("final_row", [False, True])
+@pytest.mark.parametrize("iters", [1, 2, 8])
+def test_kernel_matches_plain_at_every_iteration_count(cuda, iters, final_row):
+    dots, g, pre, post = _card_inputs(cuda, 8, (2, 8, 196, 196))
+    _assert_kernel_matches(*_kernel_vs_plain(dots, g, pre, post, iters, final_row))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(16, 8, 196, 196), (4, 16, 197, 197)])
+def test_kernel_repeats_bit_for_bit(cuda, shape):
+    """No atomics: d pre and d post are summed through per-item partials in
+    a fixed order, so two runs give the same bits."""
+    inputs = _card_inputs(cuda, 9, shape)
+    first = _kernel_vs_plain(*inputs, 3, True)[0]
+    again = _kernel_vs_plain(*inputs, 3, True)[0]
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_autograd_on_card_launches_kernels(cuda):
+    """``talking_heads_robust_softmax`` on CUDA dots goes through one
+    forward and one backward launch, and agrees with the CPU path."""
+    dots, pre, post, g = _inputs(10, 2, 4, 49)
+    cpu = [torch.from_numpy(a).requires_grad_(True) for a in (dots, pre, post)]
+    want = ops.talking_heads_robust_softmax(*cpu, robust=True)
+    want.backward(torch.from_numpy(g))
+    th.launches.reset()
+    card = [torch.from_numpy(a).to(cuda).requires_grad_(True) for a in (dots, pre, post)]
+    out = ops.talking_heads_robust_softmax(*card, robust=True)
+    out.backward(torch.from_numpy(g).to(cuda))
+    torch.cuda.synchronize()
+    assert (th.launches.fwd, th.launches.bwd) == (1, 1)
+    np.testing.assert_allclose(out.detach().cpu().numpy(), want.detach().numpy(),
+                               atol=1e-4, rtol=1e-3)
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a.grad.cpu().numpy(), b.grad.numpy(), atol=1e-4, rtol=1e-3)
