@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU: builds the hand-written
 kernels, holds them against their plain PyTorch versions, takes a few
-SimpleViT-B/16, Swin-T, LeViT-128S and CaiT @224 bf16 train steps through
-them, and times kernels and steps.
+SimpleViT-B/16, Swin-T, LeViT-128S, CaiT and CvT-13 @224 bf16 train steps
+through them, and times kernels and steps.
 
-    python3 chip_smoke.py     # all phases; ~4 minutes on an H100
+    python3 chip_smoke.py     # all phases; ~5 minutes on an H100
 
 Phases, one line each (or a few):
   1. device   the card's name and power limit, as nvidia-smi reports them;
               exits non-zero without a CUDA device
-  2. build    nvcc build of noise_robust_vit_tpu_torch/ops/cuda/csrc, seconds
+  2. build    nvcc build of noise_robust_vit_tpu_torch/ops/cuda/csrc (one nvcc
+              a source, in parallel), seconds
   3. kernels  packed kernels against their plain versions at [8, 196|197,
               2304] (H=12, D=64), vanilla and three Sinkhorn schedules, and at
               the main path's [256, 196, 2304], vanilla and robust (3, final);
@@ -34,7 +35,12 @@ Phases, one line each (or a few):
               final), float32 and bfloat16, out, residual rows, d dots, d pre
               and d post (d pre and d post, sums over every image and entry,
               to 1e-4 of their largest magnitude in float32, 1e-3 in
-              bfloat16), and the bits of two runs at CaiT's shape
+              bfloat16), and the bits of two runs at CaiT's shape; the
+              streaming kernels against theirs at CvT-13's stage 1
+              [128, 1, 3136 | 784, 64] and stage 2 [128, 3, 784 | 196, 64]
+              bf16 and a ragged float32 [2, 2, 300 | 130, 24], (3, final),
+              (4, no final) and (1, final), out, residual vectors, dq, dk, dv,
+              and the bits of two runs at stage 1
   4. slice    small SimpleViT, Swin v1/v2, LeViT and CaiT models, kernels against
               the plain path (LeViT in train mode, with its BN running
               statistics); 5 AdamW steps (lr 1e-4, wd 0.05) on one fixed
@@ -50,18 +56,25 @@ Phases, one line each (or a few):
               small CaiT f32 robust (N = 49) card vs cpu (2 talking-heads
               launches each way); 5 + 5 steps of CaiT @224 bf16 at batch 64
               (6 talking-heads launches each way a robust step, 0 square and
-              0 rect; none vanilla)
+              0 rect; none vanilla); small CvT f32 robust at 112 px card vs
+              cpu in train mode (stage 1 streams: 1 streaming and 2 rect
+              launches each way); 5 + 5 steps of CvT-13 @224 bf16 at batch 64
+              (3 streaming and 10 rect launches each way a robust step, 0
+              square, 0 biased; none vanilla)
   5. timing   kernels against plain versions at [256, 196, 2304] (packed),
               [8192, 3, 49, 32], nW=64 (biased), with
               scaled_dot_product_attention as the vanilla yardstick, and
               [256, 8, 49, 196] (rect) and [128, 8, 197, 197] (square) f32
-              with torch.softmax as the vanilla counterpart, and the
+              with torch.softmax as the vanilla counterpart, the
               talking-heads kernels at CaiT's [128, 8, 196, 196] f32 beside
-              the vanilla sandwich (einsum, torch.softmax, einsum); the train
-              step of SimpleViT-B/16 at batch 256, Swin-T at batch 128,
-              LeViT-128S at batch 256 and CaiT at batch 128 (median of 3
-              windows): img/s, MFU against 989 TFLOP/s dense bf16, peak
-              memory, and CaiT's robust/vanilla ratio
+              the vanilla sandwich (einsum, torch.softmax, einsum), and the
+              streaming kernels at CvT-13's stages 1 and 2 bf16 beside their
+              plain versions, the vector form and
+              scaled_dot_product_attention; the train step of SimpleViT-B/16
+              at batch 256, Swin-T at batch 128, LeViT-128S at batch 256,
+              CaiT and CvT-13 at batch 128 (median of 3 windows): img/s, MFU
+              against 989 TFLOP/s dense bf16, peak memory, and CaiT's and
+              CvT-13's robust/vanilla ratios
   6. profile  device time by op and kernel over one robust train step of
               each model (torch.profiler), the top rows
 Then the card line again, a {"kernels": [...]} JSON line, and as the last
@@ -151,19 +164,21 @@ def bound_ms(nbytes, mma_flops, f32_ops):
 
 
 def attention_work(items, n, d, dv, in_bytes, out_bytes, robust, iters, final_row,
-                   bias_add):
+                   bias_add, m=None):
     """(fwd, bwd) bounds of one attention call over `items` (image, head)
-    matrices: the bytes each direction must move once, its products (fwd
-    q·kᵀ and attn·v; bwd the q·kᵀ recompute, dV, dA, dQ, dK, and o/a when
-    robust) and its float32 passes over the N² entries (scale and bias,
-    softmax, the chain, the softmax vjp, the rank-1 terms)."""
+    matrices of n queries and m keys (m = n by default): the bytes each
+    direction must move once, its products (fwd q·kᵀ and attn·v; bwd the
+    q·kᵀ recompute, dV, dA, dQ, dK, and o/a when robust), each counted once
+    whatever a kernel recomputes, and its float32 passes over the n·m
+    entries (scale and bias, softmax, the chain, the softmax vjp, the rank-1
+    terms)."""
     fp, bp, nt = chain_passes(robust, iters, final_row)
-    nn = items * n * n
-    fwd = bound_ms(in_bytes[0] + out_bytes[0], items * 2 * n * n * (d + dv),
-                   nn * (4 + bias_add + 2 * fp))
+    nm = items * n * (n if m is None else m)
+    fwd = bound_ms(in_bytes[0] + out_bytes[0], 2 * nm * (d + dv),
+                   nm * (4 + bias_add + 2 * fp))
     bwd_products = 3 * d + (3 if robust else 2) * dv
-    bwd = bound_ms(in_bytes[1] + out_bytes[1], items * 2 * n * n * bwd_products,
-                   nn * (3 + bias_add + 2 * bp + 4 + 2 * nt))
+    bwd = bound_ms(in_bytes[1] + out_bytes[1], 2 * nm * bwd_products,
+                   nm * (3 + bias_add + 2 * bp + 4 + 2 * nt))
     return fwd, bwd
 
 
@@ -1027,6 +1042,191 @@ def phase_th_times(th, torch, dev, shape=CAIT_TH):
     return t
 
 
+# The streaming kernels' checked shapes: CvT-13 @224 at batch 128, stage 1
+# and stage 2 (tools/dispatch_audit.jsonl), and a ragged float32 shape that
+# the TPU kernel pads on both sides; (label, (B, H, N, M, D), dtype)
+CVT_S1 = (128, 1, 3136, 784, 64)
+CVT_S2 = (128, 3, 784, 196, 64)
+STREAM_SHAPES = [("cvt stage 1", CVT_S1, "bfloat16"), ("cvt stage 2", CVT_S2, "bfloat16"),
+                 ("ragged", (2, 2, 300, 130, 24), "float32")]
+STREAM_MODES = [(3, True), (4, False), (1, True)]
+
+
+def stream_inputs(torch, dev, rng, shape, dtype):
+    """q, k, v and the upstream gradient, N(0, 1), on the card."""
+    b, h, n, m, d = shape
+    q, g = (torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32)).to(dev, dtype)
+            for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((b, h, m, d), dtype=np.float32)).to(dev, dtype)
+            for _ in range(2))
+    return q, k, v, g
+
+
+def stream_pairs(sa, torch, q, k, v, g, iters, final_row):
+    """(kernel, plain) results of the streaming kernels on the same inputs:
+    out, av, bv, dq, dk, dv."""
+    scale = q.shape[-1] ** -0.5
+    got = sa.streaming_attention_fwd_cuda(q, k, v, scale, iters, final_row)
+    got = (*got, *sa.streaming_attention_bwd_cuda(q, k, v, g, *got[1:], scale, iters, final_row))
+    torch.cuda.synchronize()
+    want = sa.streaming_attention_fwd_plain(q, k, v, scale, iters, final_row)
+    want = (*want, *sa.streaming_attention_bwd_plain(q, k, v, g, *want[1:], scale, iters,
+                                                     final_row))
+    torch.cuda.synchronize()
+    return got, want
+
+
+def phase_stream_kernels(sa, torch, dev):
+    """Streaming kernels against their plain versions at STREAM_SHAPES,
+    (3, final), (4, no final) and (1, final): out, the residual vectors
+    (lse and a, b), dq, dk and dv. float32: atol 1e-4, rtol 1e-3 (the sums
+    run in another order and the reverse chain amplifies it); bfloat16 q, k,
+    v (math in float32): out atol 2e-2 (one bf16 rounding of values of
+    order one), dq, dk, dv atol and rtol 2e-2, the float32 residual vectors
+    atol and rtol 1e-3. Then two runs at CvT stage 1 give the same bits.
+    Returns the largest errors at CvT's stages 1 and 2, (3, final): fwd
+    (out), bwd (dq, dk, dv)."""
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    rng = np.random.default_rng(40)
+    names = ["out", "av", "bv", "dq", "dk", "dv"]
+    for label, shape, dname in STREAM_SHAPES:
+        dtype = getattr(torch, dname)
+        bf16 = dtype == torch.bfloat16
+        q, k, v, g = stream_inputs(torch, dev, rng, shape, dtype)
+        for iters, final_row in STREAM_MODES:
+            got, want = stream_pairs(sa, torch, q, k, v, g, iters, final_row)
+            errs = {nm: (a.float() - b.float()).abs().max().item()
+                    for nm, a, b in zip(names, got, want)}
+            log(f"kernels: streaming {label} {dname} {list(shape)} iters={iters} "
+                f"final_row={int(final_row)} max_abs_err "
+                + " ".join(f"{nm}={e:.3g}" for nm, e in errs.items()))
+            for nm, a, b in zip(names, got, want):
+                if nm in ("av", "bv"):
+                    torch.testing.assert_close(a, b, atol=1e-3 if bf16 else 1e-4, rtol=1e-3,
+                                               msg=nm)
+                elif bf16:
+                    torch.testing.assert_close(a.float(), b.float(), atol=2e-2,
+                                               rtol=0 if nm == "out" else 2e-2, msg=nm)
+                else:
+                    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=nm)
+            if label.startswith("cvt") and (iters, final_row) == (3, True):
+                worst["fwd"] = max(worst["fwd"], errs["out"])
+                worst["bwd"] = max(worst["bwd"], errs["dq"], errs["dk"], errs["dv"])
+                if shape == CVT_S1:
+                    again = stream_pairs(sa, torch, q, k, v, g, iters, final_row)[0]
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise RuntimeError("streaming: two runs gave different bits")
+                    log(f"kernels: streaming {list(shape)} {dname}: two runs give the same "
+                        f"bits (out, av, bv, dq, dk, dv)")
+                    del again
+            del got, want
+        del q, k, v, g
+        torch.cuda.empty_cache()
+    return worst
+
+
+CVT_SMALL = dict(num_classes=10, s1_emb_dim=16, s1_heads=1, s1_depth=1, s2_emb_dim=24,
+                 s2_heads=1, s2_depth=1, s3_emb_dim=32, s3_heads=2, s3_depth=1)
+
+
+def phase_small_cvt(sa, ss, torch, dev):
+    """The CvT wiring through the kernels: a small robust float32 CvT (dims
+    16/24/32, heads 1/1/2 of 64, depth 1 a stage) at 112 px, where stage 1
+    (784 queries × 196 keys) streams and stages 2 and 3 take the rect
+    kernels ([4, 1, 196, 49], [4, 2, 49, 16]), on the card against the same
+    weights on the CPU, in train mode: logits, every parameter gradient and
+    the BN running statistics after the step (atol 1e-4, rtol 1e-3, as
+    LeViT's). Every parameter is perturbed from a seed. 1 streaming and 2
+    rect launches each way on the card, none on the CPU."""
+    from noise_robust_vit_tpu_torch import CvT
+
+    gen = torch.Generator().manual_seed(41)
+    cpu = CvT(robust=True, device="cpu", **CVT_SMALL)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    gpu = CvT(robust=True, device=dev, **CVT_SMALL)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(42)
+    x = torch.from_numpy(rng.standard_normal((4, 112, 112, 3), dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, size=4))
+    outs = []
+    for model, xx, yy in ((cpu, x, y), (gpu, x.to(dev), y.to(dev))):
+        model.train()
+        sa.launches.reset()
+        ss.launches_rect.reset()
+        logits = model(xx)
+        torch.nn.functional.cross_entropy(logits.float(), yy).backward()
+        outs.append((logits.detach().cpu(),
+                     {k: p.grad.cpu() for k, p in model.named_parameters()},
+                     {k: b.cpu() for k, b in model.named_buffers()},
+                     (sa.launches.fwd, sa.launches.bwd, ss.launches_rect.fwd,
+                      ss.launches_rect.bwd)))
+    if outs[0][3] != (0, 0, 0, 0) or outs[1][3] != (1, 1, 2, 2):
+        raise RuntimeError(f"small cvt: launches (streaming fwd, bwd, rect fwd, bwd) cpu "
+                           f"{outs[0][3]}, card {outs[1][3]}, expected 0s and (1, 1, 2, 2)")
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-3)
+    for i in (1, 2):
+        for k, v in outs[0][i].items():
+            torch.testing.assert_close(outs[1][i][k], v, atol=1e-4, rtol=1e-3, msg=k)
+    err = max((outs[1][1][k] - g).abs().max().item() for k, g in outs[0][1].items())
+    err_bn = max((outs[1][2][k] - v).abs().max().item() for k, v in outs[0][2].items())
+    log(f"slice: small CvT f32 robust 112 px train mode card vs cpu: logits, grads and BN "
+        f"running stats agree (max grad err {err:.3g}, stats {err_bn:.3g}), launches "
+        f"streaming 1/1, rect 2/2 on the card, 0 on the cpu")
+
+
+def phase_stream_times(sa, torch, dev):
+    """Streaming kernels at CvT-13's stage-1 and stage-2 q/k/v (batch 128,
+    bf16), robust (3, final), beside their plain versions, the vector form
+    (float32 logits → ops.sinkhorn_attention → attn·v, its backward through
+    autograd) and scaled_dot_product_attention (vanilla softmax, backward
+    through autograd: the library yardstick). Each bound comes from these
+    inputs: the bytes each direction must move once, q·kᵀ and attn·v
+    counted once (attention_work with n queries and m keys)."""
+    from noise_robust_vit_tpu_torch import ops
+
+    rng = np.random.default_rng(43)
+    times = {}
+    for label, shape in (("stage 1", CVT_S1), ("stage 2", CVT_S2)):
+        b, h, n, m, d = shape
+        q, k, v, g = stream_inputs(torch, dev, rng, shape, torch.bfloat16)
+        scale = d ** -0.5
+        _, av, bv = sa.streaming_attention_fwd_cuda(q, k, v, scale)
+        t = {"fwd": cuda_ms(lambda: sa.streaming_attention_fwd_cuda(q, k, v, scale), 10),
+             "fwd_plain": cuda_ms(lambda: sa.streaming_attention_fwd_plain(q, k, v, scale), 3),
+             "bwd": cuda_ms(lambda: sa.streaming_attention_bwd_cuda(q, k, v, g, av, bv, scale),
+                            10),
+             "bwd_plain": cuda_ms(
+                 lambda: sa.streaming_attention_bwd_plain(q, k, v, g, av, bv, scale), 3)}
+
+        def vector(qq, kk, vv):
+            logits = torch.matmul(qq.float(), kk.float().transpose(-1, -2)) * scale
+            return torch.matmul(ops.sinkhorn_attention(logits).to(vv.dtype), vv)
+
+        vec_fwd = cuda_ms(lambda: vector(q, k, v), 3)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = vector(*leaves)
+        vec_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 3)
+        del out, leaves
+        torch.cuda.empty_cache()
+        t["fwd_lib"], t["bwd_lib"] = sdpa_ms(torch, q, k, v, None, g)
+        qkv_b, out_b = (q.numel() + k.numel() + v.numel()) * 2, q.numel() * 2
+        vec_b = (av.numel() + bv.numel()) * 4
+        (t["fwd_bound"], t["fwd_by"]), (t["bwd_bound"], t["bwd_by"]) = attention_work(
+            b * h, n, d, d, (qkv_b, qkv_b + out_b + vec_b), (out_b + vec_b, qkv_b), True, 3,
+            True, 0, m=m)
+        times[label] = t
+        log(f"timing: streaming attention bf16 CvT {label} {list(shape)} (3, final) ms: fwd "
+            f"{t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, vector form {vec_fwd:.4f}, bound "
+            f"{t['fwd_bound']:.4f} {t['fwd_by']}) bwd {t['bwd']:.4f} (plain "
+            f"{t['bwd_plain']:.4f}, vector form {vec_bwd:.4f}, bound {t['bwd_bound']:.4f} "
+            f"{t['bwd_by']}); sdpa fwd {t['fwd_lib']:.4f} bwd {t['bwd_lib']:.4f}")
+        del q, k, v, g, av, bv
+        torch.cuda.empty_cache()
+    return times
+
+
 def kernel_entry(name, src, replaces, launches, err, t, direction):
     """One row of the {"kernels": [...]} line: the robust (3, final) times."""
     return {"name": name, "route": "cuda", "source": CSRC + src, "replaces": PALLAS + replaces,
@@ -1051,6 +1251,7 @@ def main() -> int:
     from noise_robust_vit_tpu_torch.ops.cuda import build
     from noise_robust_vit_tpu_torch.ops.cuda import packed_attention as pa
     from noise_robust_vit_tpu_torch.ops.cuda import sinkhorn_softmax as ss
+    from noise_robust_vit_tpu_torch.ops.cuda import streaming_attention as sa
     from noise_robust_vit_tpu_torch.ops.cuda import talking_heads as th
 
     t0 = time.perf_counter()
@@ -1062,11 +1263,13 @@ def main() -> int:
     worst_b = phase_biased_kernels(ba, torch, dev)
     worst_s = phase_sinkhorn_kernels(ss, torch, dev)
     worst_t = phase_th_kernels(th, torch, dev)
+    worst_st = phase_stream_kernels(sa, torch, dev)
     torch.cuda.synchronize()
     phase_small_model(torch, dev)
     phase_small_swin(ba, torch, dev)
     phase_small_levit(ba, ss, torch, dev)
     phase_small_cait(th, torch, dev)
+    phase_small_cvt(sa, ss, torch, dev)
     torch.cuda.synchronize()
     counts = phase_train({"packed": pa.launches}, torch, dev, "simple_vit_b16",
                          {True: {"packed": 12}, False: {"packed": 12}})["packed"]
@@ -1083,12 +1286,18 @@ def main() -> int:
     counts_t = phase_train(cait_counts, torch, dev, "cait",
                            {True: {"talking_heads": 6, "square": 0, "rect": 0},
                             False: {"talking_heads": 0, "square": 0, "rect": 0}})
+    cvt_counts = {"streaming": sa.launches, "rect": ss.launches_rect, "square": ss.launches,
+                  "biased": ba.launches}
+    counts_c = phase_train(cvt_counts, torch, dev, "cvt_13",
+                           {True: {"streaming": 3, "rect": 10, "square": 0, "biased": 0},
+                            False: {"streaming": 0, "rect": 0, "square": 0, "biased": 0}})
     torch.cuda.synchronize()
     ktimes = phase_kernel_times(pa, torch, dev)
     btimes = phase_biased_times(ba, torch, dev)
     phase_biased_levit_times(ba, torch, dev)
     stimes = phase_sinkhorn_times(ss, torch, dev)
     ttimes = phase_th_times(th, torch, dev)
+    sttimes = phase_stream_times(sa, torch, dev)
     torch.cuda.synchronize()
     phase_step_times(torch, dev, "simple_vit_b16", 256, vit_train_flops_per_image())
     macs = swin_fwd_macs_per_image()
@@ -1109,11 +1318,20 @@ def main() -> int:
         f"Dense, q·kᵀ and attn·v of both stages, head)")
     rates_c = phase_step_times(torch, dev, "cait", 128, 3 * 2 * macs_c)
     log(f"timing: cait robust/vanilla img/s ratio {rates_c[True] / rates_c[False]:.4f}")
+    from noise_robust_vit_tpu_torch.models.cvt import cvt_macs_per_image
+
+    macs_v = cvt_macs_per_image(create_model("cvt_13", num_classes=1000, device="meta"))
+    log(f"timing: cvt_13 forward {macs_v / 1e9:.4f} GMACs per image (conv embeddings, "
+        f"depthwise and pointwise projections, q·kᵀ and attn·v, to_out, the 1×1 FFN, head; "
+        f"the CvT paper publishes 4.5 G)")
+    rates_v = phase_step_times(torch, dev, "cvt_13", 128, 3 * 2 * macs_v)
+    log(f"timing: cvt_13 robust/vanilla img/s ratio {rates_v[True] / rates_v[False]:.4f}")
     torch.cuda.synchronize()
     phase_profile(torch, dev, "simple_vit_b16", 256)
     phase_profile(torch, dev, "swin_t", 128)
     phase_profile(torch, dev, "levit", 256)
     phase_profile(torch, dev, "cait", 128)
+    phase_profile(torch, dev, "cvt_13", 128)
 
     kernels = [
         kernel_entry("packed_attention_fwd", "packed_attention_fwd.cu", "block_attention.py:234",
@@ -1129,15 +1347,21 @@ def main() -> int:
         kernel_entry("sinkhorn_softmax_bwd", "sinkhorn_softmax_bwd.cu", "sinkhorn_softmax.py:266",
                      counts_sq["bwd"], worst_s["square", "bwd"], stimes["square"], "bwd"),
         kernel_entry("sinkhorn_softmax_rect_fwd", "sinkhorn_softmax_fwd.cu",
-                     "sinkhorn_softmax.py:497", counts_l["rect"]["fwd"], worst_s["rect", "fwd"],
-                     stimes["rect"], "fwd"),
+                     "sinkhorn_softmax.py:497", counts_l["rect"]["fwd"] + counts_c["rect"]["fwd"],
+                     worst_s["rect", "fwd"], stimes["rect"], "fwd"),
         kernel_entry("sinkhorn_softmax_rect_bwd", "sinkhorn_softmax_bwd.cu",
-                     "sinkhorn_softmax.py:537", counts_l["rect"]["bwd"], worst_s["rect", "bwd"],
-                     stimes["rect"], "bwd"),
+                     "sinkhorn_softmax.py:537", counts_l["rect"]["bwd"] + counts_c["rect"]["bwd"],
+                     worst_s["rect", "bwd"], stimes["rect"], "bwd"),
         kernel_entry("talking_heads_fwd", "talking_heads_fwd.cu", "talking_heads.py:175",
                      counts_t["talking_heads"]["fwd"], worst_t["fwd"], ttimes, "fwd"),
         kernel_entry("talking_heads_bwd", "talking_heads_bwd.cu", "talking_heads.py:208",
                      counts_t["talking_heads"]["bwd"], worst_t["bwd"], ttimes, "bwd"),
+        kernel_entry("streaming_attention_fwd", "streaming_attention_fwd.cu",
+                     "streaming_sinkhorn.py:397", counts_c["streaming"]["fwd"], worst_st["fwd"],
+                     sttimes["stage 1"], "fwd"),
+        kernel_entry("streaming_attention_bwd", "streaming_attention_bwd.cu",
+                     "streaming_sinkhorn.py:449", counts_c["streaming"]["bwd"], worst_st["bwd"],
+                     sttimes["stage 1"], "bwd"),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -7,8 +7,8 @@ CPU tensors.
 """
 
 from .convert import convert_params
-from .models import CaiT, LeViT, SimpleViT, SwinTransformer, create_model
-from .ops import biased_attention, packed_attention
+from .models import CaiT, CvT, LeViT, SimpleViT, SwinTransformer, create_model
+from .ops import biased_attention, packed_attention, streaming_attention
 
-__all__ = ["CaiT", "LeViT", "SimpleViT", "SwinTransformer", "biased_attention", "convert_params",
-           "create_model", "packed_attention"]
+__all__ = ["CaiT", "CvT", "LeViT", "SimpleViT", "SwinTransformer", "biased_attention",
+           "convert_params", "create_model", "packed_attention", "streaming_attention"]

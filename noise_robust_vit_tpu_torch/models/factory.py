@@ -1,7 +1,7 @@
 """Architecture registry: name → constructor (counterpart of
 ``noise_robust_vit_tpu/models/factory.py``; the port's entries so far are
 ``simple_vit``, ``simple_vit_b16``, the Swin v1/v2 builders, the LeViT
-builders, with ``levit`` for LeViT-128S, and ``cait``). Every entry accepts
+builders, with ``levit`` for LeViT-128S, ``cait`` and ``cvt_13``). Every entry accepts
 ``(num_classes, image_size, robust, dtype, device)``.
 ``create_model`` builds on the card unless ``device`` names another (it
 raises when there is no card), draws the initial weights from a
@@ -18,6 +18,7 @@ import torch
 from ..utils import resolve_device
 from . import levit, swin
 from .cait import CaiT, _Transformer as _CaiTStage
+from .cvt import CvT
 from .layers import DropPath, init_params
 from .simple_vit import SimpleViT
 
@@ -100,3 +101,12 @@ def _cait(num_classes, image_size, robust, dtype, device=None, **kw):
         cls_depth=kw.pop("cls_depth", 2), heads=kw.pop("heads", 8),
         mlp_dim=kw.pop("mlp_dim", 1024), robust=robust, dtype=dtype, device=device, **kw,
     )
+
+
+@register_model("cvt_13")
+def _cvt_13(num_classes, image_size, robust, dtype, device=None, **kw):
+    """CvT-13 as the JAX factory builds it (JAX factory.py:137-141: the
+    ``CvT`` defaults, dims 64/192/384, heads 1/3/6, depths 1/2/10, dim_head
+    64, kv stride 2, no dropout). CvT takes any image size, so
+    ``image_size`` is not used, as in JAX."""
+    return CvT(num_classes=num_classes, robust=robust, dtype=dtype, device=device, **kw)

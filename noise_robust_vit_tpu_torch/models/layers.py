@@ -110,32 +110,38 @@ class Conv(nn.Module):
     symmetric padding (an int ``padding`` pads every spatial side by it);
     NHWC out. The weight is kept OIHW, as torch's convolutions keep it.
     Inside, the NHWC tensor is viewed as a channels-last NCHW one, so the
-    layout changes cost no copy."""
+    layout changes cost no copy. ``groups`` is flax's
+    ``feature_group_count`` (a depthwise conv when it equals the channels:
+    the weight ``[C, 1, kh, kw]``), and ``use_bias=False`` leaves out the
+    ``bias`` parameter, as flax's tree has none."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int | tuple[int, int], stride: int | tuple[int, int] = 1,
                  padding: int = 0, dtype: torch.dtype = torch.float32, device=None,
-                 kernel_init: Callable | None = None):
+                 kernel_init: Callable | None = None, groups: int = 1, use_bias: bool = True):
         super().__init__()
         kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.groups = stride, padding, groups
         self.compute_dtype = dtype
         self.kernel_init = kernel_init or lecun_normal_init()
-        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kh, kw,
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, kh, kw,
                                                device=device))
-        self.bias = nn.Parameter(torch.empty(out_channels, device=device))
+        self.bias = (nn.Parameter(torch.empty(out_channels, device=device)) if use_bias
+                     else None)
         with torch.no_grad():
             self.init_own_params(None)
 
     def init_own_params(self, generator: torch.Generator | None) -> None:
-        # the init reads fans from a Dense-shaped [out, kh·kw·in] view
+        # the init reads fans from a Dense-shaped [out, kh·kw·in/groups] view
         self.kernel_init(self.weight.view(self.weight.shape[0], -1), generator)
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt),
-                     self.stride, self.padding)
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), bias,
+                     self.stride, self.padding, 1, self.groups)
         return y.permute(0, 2, 3, 1)
 
 

@@ -7,6 +7,8 @@ from .attention import (
     dot_product_attention,
     packed_attention,
     packed_dispatch,
+    streaming_attention,
+    streaming_dispatch,
 )
 from .posemb import posemb_sincos_2d
 from .regularizers import drop_path
@@ -31,5 +33,7 @@ __all__ = [
     "sinkhorn_attention",
     "sinkhorn_normalize",
     "sinkhorn_scalings",
+    "streaming_attention",
+    "streaming_dispatch",
     "talking_heads_robust_softmax",
 ]

@@ -6,7 +6,9 @@ kernels.
 Dispatch rule: a packed ``[B, N, 3·H·D]`` tensor whose shape passes the
 packed kernels' gate goes to ``packed_attention``; a robust windowed
 attention whose shape passes the biased kernels' gate goes to
-``biased_attention``. Each launches its CUDA kernel for a CUDA tensor and
+``biased_attention``; a robust q/k/v attention with more than 640 queries
+or keys (padded to 128, as JAX counts) inside the streaming kernels' gate
+goes to ``streaming_attention``. Each launches its CUDA kernel for a CUDA tensor and
 runs its plain PyTorch version for a CPU tensor. A shape outside the gate
 takes ``dot_product_attention`` (or the model's own plain path). The choice
 is made on shape before the call, never after a kernel error.
@@ -18,10 +20,12 @@ import torch
 
 from .cuda.biased_attention import BiasedAttention, biased_attention_supported
 from .cuda.packed_attention import PackedAttention, packed_attention_supported
+from .cuda.streaming_attention import StreamingAttention, streaming_attention_supported
 from .sinkhorn import sinkhorn_scalings
 
 __all__ = ["biased_attention", "biased_dispatch", "dot_product_attention",
-           "packed_attention", "packed_dispatch"]
+           "packed_attention", "packed_dispatch", "streaming_attention",
+           "streaming_dispatch"]
 
 # Whether the packed kernels serve a self-attention shape (vanilla and robust
 # both take them): the kernels' own shape gate.
@@ -66,6 +70,31 @@ def biased_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return BiasedAttention.apply(q, k, v, bias, float(scale), bool(robust),
                                  int(sinkhorn_iters), bool(final_row_norm),
                                  int(num_windows), bool(no_bias))
+
+
+def streaming_dispatch(robust: bool, b: int, heads: int, n: int, m: int, d: int,
+                       sinkhorn_iters: int = 3) -> bool:
+    """Whether the streaming kernels serve a q/k/v attention of ``n``
+    queries and ``m`` keys: the JAX package's policy (the Sinkhorn path
+    only, and the giant-N regime the logits-interface kernels refuse,
+    ``max(round_up(n, 128), round_up(m, 128)) > 640``, which is
+    ``max(n, m) > 640`` since 640 is a multiple of 128: CvT's stages 1 and 2
+    at 224 px), inside the streaming kernels' gate."""
+    return (robust and max(n, m) > 640
+            and streaming_attention_supported(b, heads, n, m, d, sinkhorn_iters))
+
+
+def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        scale: float | None = None, sinkhorn_iters: int = 3,
+                        final_row_norm: bool = True) -> torch.Tensor:
+    """Sinkhorn attention at the q/k/v interface, never forming the N×M
+    matrix in device memory: ``q [B, H, N, D]``, ``k, v [B, H, M, D]`` →
+    ``robust_softmax(scale·q·kᵀ) · v`` ``[B, H, N, D]`` in v's dtype (softmax
+    and the Sinkhorn schedule in float32)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return StreamingAttention.apply(q, k, v, float(scale), int(sinkhorn_iters),
+                                    bool(final_row_norm))
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -2,11 +2,12 @@
 interface, and load it with ctypes.
 
 ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) at first use,
-into ``build/kernels/`` at the root of the checkout. The library's name
-carries a hash of the sources and flags, so an edited source is rebuilt and
-a stale library is never loaded. The build writes to a temporary name and
-renames it into place, so concurrent processes never load a half-written
-file. Nothing is built or imported when this module is imported.
+into ``build/kernels/`` at the root of the checkout: one ``nvcc -c`` for each
+source, all started together, then one link. The library's name carries a
+hash of the sources and flags, so an edited source is rebuilt and a stale
+library is never loaded. The build writes to temporary names and renames the
+library into place, so concurrent processes never load a half-written file.
+Nothing is built or imported when this module is imported.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ if TYPE_CHECKING:
     import torch
 
 __all__ = ["LaunchCounts", "build", "build_dir", "by_device", "check_operand", "error_string",
-           "load_library", "ptr", "raise_on", "sources", "stream"]
+           "load_library", "open_library", "ptr", "raise_on", "sources", "stream"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -66,12 +67,18 @@ _ENTRIES = {
     # dots, g, vecs, pre, post, ds, dpre, dpost, dm, part, dtype, B, H, N,
     # iters, final_row, stream
     "nrv_talking_heads_bwd": ([_VP] * 10 + [_I] * 6 + [_VP]),
+    # q, k, v, out, av, bv, dtype, K, N, M, D, scale, iters, final_row, tq,
+    # stream
+    "nrv_streaming_attention_fwd": ([_VP] * 6 + [_I] * 5 + [_F] + [_I] * 3 + [_VP]),
+    # q, k, v, g, av, bv, dq, dk, dv, acc, rows, dtype, K, N, M, D, scale,
+    # iters, final_row, tq, stream
+    "nrv_streaming_attention_bwd": ([_VP] * 11 + [_I] * 5 + [_F] + [_I] * 3 + [_VP]),
     "nrv_cuda_error_string": ([_I]),
 }
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
 
 
 def build_dir() -> Path:
@@ -90,9 +97,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _digest() -> str:
+def _digest(csrc: Path = CSRC) -> str:
     h = hashlib.sha256()
-    for path in sorted(CSRC.iterdir()):
+    for path in sorted(csrc.iterdir()):
         if path.suffix in (".cu", ".cuh"):
             h.update(path.name.encode())
             h.update(path.read_bytes())
@@ -100,33 +107,61 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the library unless a build of these sources exists; returns
-    its path."""
-    out = build_dir() / f"libnrv_kernels_{_digest()}.so"
+def build(csrc: Path = CSRC, out_dir: Path | None = None) -> Path:
+    """Compile the library of the sources in ``csrc`` (the package's by
+    default) into ``out_dir`` (``build_dir()``) unless a build of these
+    sources exists; returns its path."""
+    out = (out_dir or build_dir()) / f"libnrv_kernels_{_digest(csrc)}.so"
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for src in sources(csrc):
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [nvcc, *compile_flags, "-I", str(csrc), "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        for cmd, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                                   f"{stdout}\n{stderr}")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+    finally:
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out
 
 
-@functools.lru_cache(maxsize=1)
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load once per process, and declare every entry's
-    argument and result types."""
-    lib = ctypes.CDLL(str(build()))
+def open_library(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare every entry's argument and result
+    types."""
+    lib = ctypes.CDLL(str(path))
     for name, argtypes in _ENTRIES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_char_p if name == "nrv_cuda_error_string" else ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_library() -> ctypes.CDLL:
+    """Build if needed and load once per process."""
+    return open_library(build())
 
 
 def error_string(err: int) -> str:

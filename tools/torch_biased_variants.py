@@ -17,7 +17,6 @@ vanilla, with the builds in turns (a, b, …, b, a).
 
 from __future__ import annotations
 
-import ctypes
 import re
 import shutil
 import subprocess
@@ -36,7 +35,7 @@ from noise_robust_vit_tpu_torch.ops.cuda import build  # noqa: E402
 BOUND = re.compile(r"__launch_bounds__\(kThreads, \d+\)")
 
 
-def build_variant(spec: str) -> ctypes.CDLL:
+def build_variant(spec: str):
     blocks, _, root = spec.partition("@")
     fwd, bwd = map(int, blocks.split("/"))
     src = Path("build/variants") / re.sub(r"\W", "_", spec)
@@ -54,12 +53,7 @@ def build_variant(spec: str) -> ctypes.CDLL:
         if "Compiling entry function" in line and "biased_attention" in line and "bfloat16" in line:
             kernel = "fwd" if "fwd_kernel" in line else "bwd"
             print(f"{spec} {kernel}: {lines[i + 2].strip()} | {lines[i + 3].strip()}")
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in build._ENTRIES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_char_p if name == "nrv_cuda_error_string" else ctypes.c_int
-    return lib
+    return build.open_library(out)
 
 
 def main(argv: list[str]) -> int:

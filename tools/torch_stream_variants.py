@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Versions of the port's streaming attention kernels side by side, on one
+CUDA GPU.
+
+Each argument is a directory of kernel sources (the package's
+``ops/cuda/csrc`` by default; e.g. a parent commit's, unpacked under
+``build/``). Each is built into its own library under ``build/variants/``,
+checked against the plain versions at CvT-13's stage 1 and stage 2 q/k/v
+(batch 128, bf16, (3, final): out, dq, dk, dv to 2e-2, the residual vectors
+to 1e-3; a variant that fails to build or to agree is reported and not
+timed), and its forward
+and backward timed there, the builds in turns (a, b, …, b, a), beside the
+card's name and power limit.
+
+    python3 tools/torch_stream_variants.py build/v1/csrc noise_robust_vit_tpu_torch/ops/cuda/csrc
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke  # noqa: E402
+from noise_robust_vit_tpu_torch.ops.cuda import build  # noqa: E402
+from noise_robust_vit_tpu_torch.ops.cuda import streaming_attention as sa  # noqa: E402
+
+
+def main(argv: list[str]) -> int:
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is false: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dirs = argv or [str(build.CSRC)]
+    t0 = time.perf_counter()
+    libs = {}
+    for i, d in enumerate(dirs):
+        try:
+            libs[d] = build.open_library(build.build(Path(d), Path("build/variants") / f"v{i}"))
+        except RuntimeError as err:  # a variant that does not build is reported and left out
+            print(f"build: {d} failed: {str(err)[-3000:]}", flush=True)
+    dirs = [d for d in dirs if d in libs]
+    print(f"build: {time.perf_counter() - t0:.1f} s for {len(dirs)} source director"
+          f"{'y' if len(dirs) == 1 else 'ies'}", flush=True)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    for label, shape in (("stage 1", chip_smoke.CVT_S1), ("stage 2", chip_smoke.CVT_S2)):
+        q, k, v, g = chip_smoke.stream_inputs(torch, dev, rng, shape, torch.bfloat16)
+        scale = shape[-1] ** -0.5
+        want = sa.streaming_attention_fwd_plain(q, k, v, scale)
+        want = (*want, *sa.streaming_attention_bwd_plain(q, k, v, g, *want[1:], scale))
+        for d in dirs + dirs[::-1]:
+            build.load_library = (lambda lib: (lambda: lib))(libs[d])
+            got = sa.streaming_attention_fwd_cuda(q, k, v, scale)
+            got = (*got, *sa.streaming_attention_bwd_cuda(q, k, v, g, *got[1:], scale))
+            torch.cuda.synchronize()
+            try:
+                for i, (a, b) in enumerate(zip(got, want)):
+                    tol = 1e-3 if i in (1, 2) else 2e-2
+                    torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol,
+                                               msg=f"{d}: output {i}")
+            except AssertionError as err:  # a broken variant is reported, not timed
+                print(f"{label} {list(shape)} {d}: check failed: {err}", flush=True)
+                continue
+            av, bv = got[1:3]
+            fwd = chip_smoke.cuda_ms(lambda: sa.streaming_attention_fwd_cuda(q, k, v, scale), 10)
+            bwd = chip_smoke.cuda_ms(
+                lambda: sa.streaming_attention_bwd_cuda(q, k, v, g, av, bv, scale), 10)
+            print(f"{label} {list(shape)} {d}: fwd {fwd:.4f} ms bwd {bwd:.4f} ms", flush=True)
+        del q, k, v, g, want, got
+        torch.cuda.empty_cache()
+    print(chip_smoke.card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
