@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU: builds the hand-written
 kernels, holds them against their plain PyTorch versions, takes a few
-SimpleViT-B/16, Swin-T, LeViT-128S, CaiT and CvT-13 @224 bf16 train steps
-through them, and times kernels and steps.
+SimpleViT-B/16, Swin-T, LeViT-128S, CaiT and CvT-13 @224 and MobileViT-XS
+@256 bf16 train steps through them, and times kernels and steps.
 
     python3 chip_smoke.py     # all phases; ~5 minutes on an H100
 
@@ -40,7 +40,11 @@ Phases, one line each (or a few):
               [128, 1, 3136 | 784, 64] and stage 2 [128, 3, 784 | 196, 64]
               bf16 and a ragged float32 [2, 2, 300 | 130, 24], (3, final),
               (4, no final) and (1, final), out, residual vectors, dq, dk, dv,
-              and the bits of two runs at stage 1
+              and the bits of two runs at stage 1; the fused q/k/v kernels
+              against theirs at MobileViT-XS's three stages [2048, 256 | 64 |
+              16, 8] (512 sequences × 4 heads of 8) bf16 and float32, ragged
+              N (50, 100), DV ≠ D and D = 32, every mode, out, residual rows,
+              dq, dk, dv, and the bits of two runs at each stage
   4. slice    small SimpleViT, Swin v1/v2, LeViT and CaiT models, kernels against
               the plain path (LeViT in train mode, with its BN running
               statistics); 5 AdamW steps (lr 1e-4, wd 0.05) on one fixed
@@ -60,7 +64,11 @@ Phases, one line each (or a few):
               cpu in train mode (stage 1 streams: 1 streaming and 2 rect
               launches each way); 5 + 5 steps of CvT-13 @224 bf16 at batch 64
               (3 streaming and 10 rect launches each way a robust step, 0
-              square, 0 biased; none vanilla)
+              square, 0 biased; none vanilla); small MobileViT f32 robust at
+              128 px card vs cpu in train mode (3 fused launches each way); 5
+              + 5 steps of MobileViT-XS @256 bf16 at batch 64 (9 fused
+              launches each way a robust step, no other kernel; none
+              vanilla); every earlier model's steps count 0 fused launches
   5. timing   kernels against plain versions at [256, 196, 2304] (packed),
               [8192, 3, 49, 32], nW=64 (biased), with
               scaled_dot_product_attention as the vanilla yardstick, and
@@ -70,11 +78,16 @@ Phases, one line each (or a few):
               the vanilla sandwich (einsum, torch.softmax, einsum), and the
               streaming kernels at CvT-13's stages 1 and 2 bf16 beside their
               plain versions, the vector form and
-              scaled_dot_product_attention; the train step of SimpleViT-B/16
+              scaled_dot_product_attention; the fused kernels at MobileViT-XS's
+              stage 1 bf16, robust and vanilla, beside their plain versions,
+              the vector form and (vanilla) scaled_dot_product_attention, and
+              at stages 2 and 3 beside the biased kernels with no bias (the
+              matrix held in shared memory); the train step of SimpleViT-B/16
               at batch 256, Swin-T at batch 128, LeViT-128S at batch 256,
-              CaiT and CvT-13 at batch 128 (median of 3 windows): img/s, MFU
-              against 989 TFLOP/s dense bf16, peak memory, and CaiT's and
-              CvT-13's robust/vanilla ratios
+              CaiT, CvT-13 and MobileViT-XS (256 px) at batch 128 (median of
+              3 windows): img/s, MFU against 989 TFLOP/s dense bf16, peak
+              memory, and CaiT's, CvT-13's and MobileViT-XS's robust/vanilla
+              ratios
   6. profile  device time by op and kernel over one robust train step of
               each model (torch.profiler), the top rows
 Then the card line again, a {"kernels": [...]} JSON line, and as the last
@@ -468,20 +481,21 @@ def phase_small_model(torch, dev):
         f"(max grad err {err:.3g})")
 
 
-def phase_train(counts, torch, dev, name, per_step, steps=5, batch=64):
+def phase_train(counts, torch, dev, name, per_step, steps=5, batch=64, image=224):
     """`steps` AdamW steps (lr 1e-4, wd 0.05) of `name` bf16 at full width on
-    one fixed batch, robust then vanilla: finite, falling loss, and
-    `per_step[robust][k]` launches per step of each kernel that `counts[k]`
-    counts. Returns the launches of both runs together, by counter."""
+    one fixed batch of `image`-pixel images, robust then vanilla: finite,
+    falling loss, and `per_step[robust][k]` launches per step of each kernel
+    that `counts[k]` counts. Returns the launches of both runs together, by
+    counter."""
     from noise_robust_vit_tpu_torch import create_model
     from noise_robust_vit_tpu_torch.train import create_train_state
 
     rng = np.random.default_rng(2)
-    x = torch.from_numpy(rng.standard_normal((batch, 224, 224, 3), dtype=np.float32)).to(dev, torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((batch, image, image, 3), dtype=np.float32)).to(dev, torch.bfloat16)
     y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
     total = {k: {"fwd": 0, "bwd": 0} for k in counts}
     for robust in (True, False):
-        model = create_model(name, num_classes=1000, image_size=224, robust=robust,
+        model = create_model(name, num_classes=1000, image_size=image, robust=robust,
                              dtype=torch.bfloat16, device=dev, seed=0)
         state = create_train_state(model, lr=1e-4, weight_decay=0.05)
         losses, launches = [], []
@@ -808,19 +822,20 @@ def phase_kernel_times(pa, torch, dev, b=256, n=196, h=12, d=64):
     return times
 
 
-def phase_step_times(torch, dev, name, batch, flops, steps=10, windows=3):
-    """Train step of `name` (bf16, 1000 classes, AdamW lr 1e-3) at `batch`,
-    vanilla then robust: median img/s of `windows` windows of `steps` steps,
-    MFU from the analytic `flops` per image, and peak device memory."""
+def phase_step_times(torch, dev, name, batch, flops, steps=10, windows=3, image=224):
+    """Train step of `name` (bf16, 1000 classes, AdamW lr 1e-3) at `batch` of
+    `image`-pixel images, vanilla then robust: median img/s of `windows`
+    windows of `steps` steps, MFU from the analytic `flops` per image, and
+    peak device memory."""
     from noise_robust_vit_tpu_torch import create_model
     from noise_robust_vit_tpu_torch.train import create_train_state
 
     rng = np.random.default_rng(4)
-    x = torch.from_numpy(rng.standard_normal((batch, 224, 224, 3), dtype=np.float32)).to(dev, torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((batch, image, image, 3), dtype=np.float32)).to(dev, torch.bfloat16)
     y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
     result = {}
     for robust in (False, True):
-        model = create_model(name, num_classes=1000, image_size=224, robust=robust,
+        model = create_model(name, num_classes=1000, image_size=image, robust=robust,
                              dtype=torch.bfloat16, device=dev, seed=0)
         state = create_train_state(model, lr=1e-3, weight_decay=0.05)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -844,7 +859,7 @@ def phase_step_times(torch, dev, name, batch, flops, steps=10, windows=3):
     return result
 
 
-def phase_profile(torch, dev, name, batch, rows=25):
+def phase_profile(torch, dev, name, batch, rows=25, image=224):
     """Device time by op and kernel over one robust train step."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -852,9 +867,9 @@ def phase_profile(torch, dev, name, batch, rows=25):
     from noise_robust_vit_tpu_torch.train import create_train_state
 
     rng = np.random.default_rng(5)
-    x = torch.from_numpy(rng.standard_normal((batch, 224, 224, 3), dtype=np.float32)).to(dev, torch.bfloat16)
+    x = torch.from_numpy(rng.standard_normal((batch, image, image, 3), dtype=np.float32)).to(dev, torch.bfloat16)
     y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
-    model = create_model(name, num_classes=1000, image_size=224, robust=True,
+    model = create_model(name, num_classes=1000, image_size=image, robust=True,
                          dtype=torch.bfloat16, device=dev, seed=0)
     state = create_train_state(model)
     for _ in range(2):
@@ -864,7 +879,14 @@ def phase_profile(torch, dev, name, batch, rows=25):
         state.train_step(x, y)
         torch.cuda.synchronize()
     log(f"profile: {name} robust train step, batch {batch}, top rows by device time")
-    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=rows))
+    events = prof.key_averages()
+    log(events.table(sort_by="cuda_time_total", row_limit=rows))
+    # the hand-written kernels (namespace nrv), which the table may rank
+    # below its last row
+    for evt in events:
+        if "nrv::" in evt.key:
+            log(f"profile: {name} kernel {evt.key[:90]}: {evt.count} launches, "
+                f"{evt.device_time_total / 1e3:.3f} ms of device time")
     del model, state
     torch.cuda.empty_cache()
 
@@ -1227,6 +1249,217 @@ def phase_stream_times(sa, torch, dev):
     return times
 
 
+# The fused q/k/v kernels' checked shapes, [K, N, D, DV]: MobileViT-XS @256
+# at batch 128, its three stages of 512 sequences × 4 heads of width 8
+# (tools/dispatch_audit.jsonl); ragged N, DV ≠ D, the widest heads and
+# rows beyond one block's 256 threads; (label, shape, dtypes)
+MVIT_F1, MVIT_F2, MVIT_F3 = (2048, 256, 8, 8), (2048, 64, 8, 8), (2048, 16, 8, 8)
+FUSED_SHAPES = [("mobile_vit_xs stage 1", MVIT_F1, ("bfloat16", "float32")),
+                ("mobile_vit_xs stage 2", MVIT_F2, ("bfloat16", "float32")),
+                ("mobile_vit_xs stage 3", MVIT_F3, ("bfloat16", "float32")),
+                ("ragged", (6, 50, 16, 16), ("float32",)),
+                ("ragged, DV != D", (5, 100, 8, 24), ("float32", "bfloat16")),
+                ("widest", (3, 300, 32, 32), ("float32",))]
+
+
+def fused_inputs(torch, dev, rng, shape, dtype):
+    """q, k [K, N, D] and v, g [K, N, DV], N(0, 1), on the card."""
+    kb, n, d, dv = shape
+    q, k = (torch.from_numpy(rng.standard_normal((kb, n, d), dtype=np.float32)).to(dev, dtype)
+            for _ in range(2))
+    v, g = (torch.from_numpy(rng.standard_normal((kb, n, dv), dtype=np.float32)).to(dev, dtype)
+            for _ in range(2))
+    return q, k, v, g
+
+
+def fused_pairs(fa, torch, q, k, v, g, robust, iters, final_row):
+    """(kernel, plain) results of the fused kernels on the same inputs: out,
+    vecs, dq, dk, dv."""
+    scale = q.shape[-1] ** -0.5
+    got = fa.fused_attention_fwd_cuda(q, k, v, scale, robust, iters, final_row)
+    got = (*got, *fa.fused_attention_bwd_cuda(q, k, v, g, got[1], scale, robust, iters,
+                                              final_row))
+    torch.cuda.synchronize()
+    want = fa.fused_attention_fwd_plain(q, k, v, scale, robust, iters, final_row)
+    want = (*want, *fa.fused_attention_bwd_plain(q, k, v, g, want[1], scale, robust, iters,
+                                                 final_row))
+    torch.cuda.synchronize()
+    return got, want
+
+
+def phase_fused_kernels(fa, torch, dev):
+    """Fused q/k/v kernels against their plain versions at FUSED_SHAPES, all
+    four MODES (vanilla, (3, final), (4, no final), (4, final)): out, the
+    residual rows, dq, dk and dv. float32: atol 1e-4, rtol 1e-3 (the sums
+    run in another order and the reverse chain amplifies it); bfloat16 q, k,
+    v (math in float32): out, dq, dk, dv atol and rtol 2e-2 (one bf16
+    rounding of values of order one), the float32 residual rows atol and
+    rtol 1e-3. Then two runs at each MobileViT-XS stage shape give the same
+    bits. Returns the largest bfloat16 errors at the three stage shapes,
+    robust (3, final): fwd (out), bwd (dq, dk, dv)."""
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    rng = np.random.default_rng(50)
+    names = ["out", "vecs", "dq", "dk", "dv"]
+    for label, shape, dnames in FUSED_SHAPES:
+        for dname in dnames:
+            dtype = getattr(torch, dname)
+            bf16 = dtype == torch.bfloat16
+            q, k, v, g = fused_inputs(torch, dev, rng, shape, dtype)
+            for mode in MODES:
+                got, want = fused_pairs(fa, torch, q, k, v, g, *mode)
+                errs = {nm: (a.float() - b.float()).abs().max().item()
+                        for nm, a, b in zip(names, got, want)}
+                log(f"kernels: fused {label} {dname} {list(shape)} robust={int(mode[0])} "
+                    f"iters={mode[1]} final_row={int(mode[2])} max_abs_err "
+                    + " ".join(f"{nm}={e:.3g}" for nm, e in errs.items()))
+                for nm, a, b in zip(names, got, want):
+                    if nm == "vecs":
+                        torch.testing.assert_close(a, b, atol=1e-3 if bf16 else 1e-4, rtol=1e-3,
+                                                   msg=nm)
+                    elif bf16:
+                        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2,
+                                                   msg=nm)
+                    else:
+                        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=nm)
+                if label.startswith("mobile_vit") and bf16 and mode == (True, 3, True):
+                    worst["fwd"] = max(worst["fwd"], errs["out"])
+                    worst["bwd"] = max(worst["bwd"], errs["dq"], errs["dk"], errs["dv"])
+                    again = fused_pairs(fa, torch, q, k, v, g, *mode)[0]
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise RuntimeError("fused: two runs gave different bits")
+                    log(f"kernels: fused {list(shape)} {dname}: two runs give the same bits "
+                        f"(out, vecs, dq, dk, dv)")
+                    del again
+                del got, want
+            del q, k, v, g
+            torch.cuda.empty_cache()
+    return worst
+
+
+MVIT_SMALL = dict(num_classes=10, dims=(16, 24, 16),
+                  channels=(8, 8, 12, 16, 16, 24, 24, 24, 24, 32, 48), depths=(1, 1, 1))
+
+
+def phase_small_mobile_vit(fa, torch, dev):
+    """The MobileViT wiring through the fused kernels: a small robust float32
+    MobileViT (dims 16/24/16, depth 1 a stage, 4 heads of 8) at 128 px,
+    whose transformers attend over 64, 16 and 4 tokens, on the card against
+    the same weights on the CPU, in train mode: logits, every parameter
+    gradient and the BN running statistics after the step (atol 1e-4, rtol
+    1e-3, as LeViT's and CvT's). Every parameter is perturbed from a seed.
+    3 fused launches each way on the card, none on the CPU."""
+    from noise_robust_vit_tpu_torch import MobileViT
+
+    gen = torch.Generator().manual_seed(51)
+    cpu = MobileViT(robust=True, device="cpu", **MVIT_SMALL)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    gpu = MobileViT(robust=True, device=dev, **MVIT_SMALL)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(52)
+    x = torch.from_numpy(rng.standard_normal((4, 128, 128, 3), dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, size=4))
+    outs = []
+    for model, xx, yy in ((cpu, x, y), (gpu, x.to(dev), y.to(dev))):
+        model.train()
+        fa.launches.reset()
+        logits = model(xx)
+        torch.nn.functional.cross_entropy(logits.float(), yy).backward()
+        outs.append((logits.detach().cpu(),
+                     {k: p.grad.cpu() for k, p in model.named_parameters()},
+                     {k: b.cpu() for k, b in model.named_buffers()},
+                     (fa.launches.fwd, fa.launches.bwd)))
+    if outs[0][3] != (0, 0) or outs[1][3] != (3, 3):
+        raise RuntimeError(f"small mobile_vit: fused launches cpu {outs[0][3]}, card "
+                           f"{outs[1][3]}, expected (0, 0) and (3, 3)")
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-3)
+    for i in (1, 2):
+        for k, v in outs[0][i].items():
+            torch.testing.assert_close(outs[1][i][k], v, atol=1e-4, rtol=1e-3, msg=k)
+    err = max((outs[1][1][k] - g).abs().max().item() for k, g in outs[0][1].items())
+    err_bn = max((outs[1][2][k] - v).abs().max().item() for k, v in outs[0][2].items())
+    log(f"slice: small MobileViT f32 robust 128 px train mode card vs cpu: logits, grads and "
+        f"BN running stats agree (max grad err {err:.3g}, stats {err_bn:.3g}), fused launches "
+        f"3/3 on the card, 0 on the cpu")
+
+
+def phase_fused_times(fa, ba, torch, dev):
+    """Fused kernels at MobileViT-XS's stage-1 q/k/v ([512, 4, 256, 8] as
+    [2048, 256, 8], bf16), robust (3, final) and vanilla, beside their plain
+    versions, the vector form (``ops.dot_product_attention`` with the fused
+    dispatch off: float32 logits, softmax, the scaling vectors, attn·v; its
+    backward through autograd) and, for vanilla, scaled_dot_product_attention
+    (the library yardstick). Each bound comes from these inputs: the bytes
+    each direction must move once, the products on the bf16 tensor cores and
+    the float32 passes (attention_work). Then, at stage 2 ([2048, 64, 8]),
+    the other design beside the fused kernels: the biased kernels with no
+    bias, which keep each item's N×N matrix in shared memory (they take N up
+    to 196, so not stage 1). Log only."""
+    from noise_robust_vit_tpu_torch import ops
+
+    rng = np.random.default_rng(53)
+    kb, n, d, dv = MVIT_F1
+    q, k, v, g = fused_inputs(torch, dev, rng, MVIT_F1, torch.bfloat16)
+    scale = d ** -0.5
+    times = {}
+    for robust in (True, False):
+        _, vecs = fa.fused_attention_fwd_cuda(q, k, v, scale, robust)
+        t = {"fwd": cuda_ms(lambda: fa.fused_attention_fwd_cuda(q, k, v, scale, robust), 20),
+             "fwd_plain": cuda_ms(lambda: fa.fused_attention_fwd_plain(q, k, v, scale, robust), 3),
+             "bwd": cuda_ms(lambda: fa.fused_attention_bwd_cuda(q, k, v, g, vecs, scale, robust),
+                            20),
+             "bwd_plain": cuda_ms(
+                 lambda: fa.fused_attention_bwd_plain(q, k, v, g, vecs, scale, robust), 3),
+             "fwd_lib": None, "bwd_lib": None}
+        heads = [x.reshape(kb // 4, 4, n, -1) for x in (q, k, v, g)]
+        real = ops.attention.fused_dispatch
+        ops.attention.fused_dispatch = lambda *a, **kw: False
+        try:
+            vec_fwd = cuda_ms(lambda: ops.dot_product_attention(*heads[:3], robust=robust), 5)
+            leaves = [x.detach().requires_grad_(True) for x in heads[:3]]
+            out = ops.dot_product_attention(*leaves, robust=robust)
+            vec_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, heads[3],
+                                                          retain_graph=True), 5)
+        finally:
+            ops.attention.fused_dispatch = real
+        del out, leaves
+        if not robust:
+            t["fwd_lib"], t["bwd_lib"] = sdpa_ms(torch, *heads[:3], None, heads[3])
+        qkv_b, out_b, vec_b = 3 * q.numel() * 2, v.numel() * 2, vecs.numel() * 4
+        (t["fwd_bound"], t["fwd_by"]), (t["bwd_bound"], t["bwd_by"]) = attention_work(
+            kb, n, d, dv, (qkv_b, qkv_b + out_b + vec_b), (out_b + vec_b, qkv_b), robust, 3,
+            True, 0)
+        times[robust] = t
+        lib = "" if robust else f"; sdpa fwd {t['fwd_lib']:.4f} bwd {t['bwd_lib']:.4f}"
+        log(f"timing: fused attention bf16 MobileViT-XS stage 1 [{kb},{n},{d}] robust="
+            f"{int(robust)} (3, final) ms: fwd {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, "
+            f"vector form {vec_fwd:.4f}, bound {t['fwd_bound']:.4f} {t['fwd_by']}) bwd "
+            f"{t['bwd']:.4f} (plain {t['bwd_plain']:.4f}, vector form {vec_bwd:.4f}, bound "
+            f"{t['bwd_bound']:.4f} {t['bwd_by']}){lib}")
+        del vecs, heads
+    del q, k, v, g
+    for label, shape in (("stage 2", MVIT_F2), ("stage 3", MVIT_F3)):
+        kb, n, d, dv = shape
+        q, k, v, g = fused_inputs(torch, dev, rng, shape, torch.bfloat16)
+        _, vecs = fa.fused_attention_fwd_cuda(q, k, v, scale, True)
+        heads = [x.reshape(kb // 4, 4, n, -1) for x in (q, k, v, g)]
+        bias = torch.zeros(1, 4, n, n, device=dev)
+        args = (scale, True, 3, True, 1, True)
+        _, bvecs = ba.biased_attention_fwd_cuda(*heads[:3], bias, *args)
+        tt = [cuda_ms(lambda: fa.fused_attention_fwd_cuda(q, k, v, scale, True), 20),
+              cuda_ms(lambda: fa.fused_attention_bwd_cuda(q, k, v, g, vecs, scale, True), 20),
+              cuda_ms(lambda: ba.biased_attention_fwd_cuda(*heads[:3], bias, *args), 20),
+              cuda_ms(lambda: ba.biased_attention_bwd_cuda(*heads[:3], bias, heads[3], bvecs,
+                                                           *args), 20)]
+        log(f"timing: fused attention bf16 MobileViT-XS {label} [{kb},{n},{d}] robust=1 (3, "
+            f"final) ms: fwd {tt[0]:.4f} bwd {tt[1]:.4f}; the matrix in shared memory (biased "
+            f"kernels, no bias) fwd {tt[2]:.4f} bwd {tt[3]:.4f}")
+        del q, k, v, g, vecs, heads, bias, bvecs
+    torch.cuda.empty_cache()
+    return times
+
+
 def kernel_entry(name, src, replaces, launches, err, t, direction):
     """One row of the {"kernels": [...]} line: the robust (3, final) times."""
     return {"name": name, "route": "cuda", "source": CSRC + src, "replaces": PALLAS + replaces,
@@ -1249,6 +1482,7 @@ def main() -> int:
 
     from noise_robust_vit_tpu_torch.ops.cuda import biased_attention as ba
     from noise_robust_vit_tpu_torch.ops.cuda import build
+    from noise_robust_vit_tpu_torch.ops.cuda import fused_attention as fa
     from noise_robust_vit_tpu_torch.ops.cuda import packed_attention as pa
     from noise_robust_vit_tpu_torch.ops.cuda import sinkhorn_softmax as ss
     from noise_robust_vit_tpu_torch.ops.cuda import streaming_attention as sa
@@ -1264,33 +1498,48 @@ def main() -> int:
     worst_s = phase_sinkhorn_kernels(ss, torch, dev)
     worst_t = phase_th_kernels(th, torch, dev)
     worst_st = phase_stream_kernels(sa, torch, dev)
+    worst_f = phase_fused_kernels(fa, torch, dev)
     torch.cuda.synchronize()
     phase_small_model(torch, dev)
     phase_small_swin(ba, torch, dev)
     phase_small_levit(ba, ss, torch, dev)
     phase_small_cait(th, torch, dev)
     phase_small_cvt(sa, ss, torch, dev)
+    phase_small_mobile_vit(fa, torch, dev)
     torch.cuda.synchronize()
-    counts = phase_train({"packed": pa.launches}, torch, dev, "simple_vit_b16",
-                         {True: {"packed": 12}, False: {"packed": 12}})["packed"]
-    counts_b = phase_train({"biased": ba.launches}, torch, dev, "swin_t",
-                           {True: {"biased": 12}, False: {"biased": 0}})["biased"]
+    # the fused q/k/v kernels serve MobileViT's transformers and no site of
+    # the earlier models: their paths count 0 fused launches
+    counts = phase_train({"packed": pa.launches, "fused": fa.launches}, torch, dev,
+                         "simple_vit_b16", {True: {"packed": 12, "fused": 0},
+                                            False: {"packed": 12, "fused": 0}})["packed"]
+    counts_b = phase_train({"biased": ba.launches, "fused": fa.launches}, torch, dev, "swin_t",
+                           {True: {"biased": 12, "fused": 0},
+                            False: {"biased": 0, "fused": 0}})["biased"]
     phase_swin_v2(ba, torch, dev)
-    levit_counts = {"biased": ba.launches, "rect": ss.launches_rect, "square": ss.launches}
+    levit_counts = {"biased": ba.launches, "rect": ss.launches_rect, "square": ss.launches,
+                    "fused": fa.launches}
     counts_l = phase_train(levit_counts, torch, dev, "levit",
-                           {True: {"biased": 9, "rect": 2, "square": 0},
-                            False: {"biased": 0, "rect": 0, "square": 0}})
+                           {True: {"biased": 9, "rect": 2, "square": 0, "fused": 0},
+                            False: {"biased": 0, "rect": 0, "square": 0, "fused": 0}})
     phase_levit_256(ba, ss, torch, dev)
     counts_sq = phase_square_path(ss, torch, dev)
-    cait_counts = {"talking_heads": th.launches, "square": ss.launches, "rect": ss.launches_rect}
+    cait_counts = {"talking_heads": th.launches, "square": ss.launches, "rect": ss.launches_rect,
+                   "fused": fa.launches}
     counts_t = phase_train(cait_counts, torch, dev, "cait",
-                           {True: {"talking_heads": 6, "square": 0, "rect": 0},
-                            False: {"talking_heads": 0, "square": 0, "rect": 0}})
+                           {True: {"talking_heads": 6, "square": 0, "rect": 0, "fused": 0},
+                            False: {"talking_heads": 0, "square": 0, "rect": 0, "fused": 0}})
     cvt_counts = {"streaming": sa.launches, "rect": ss.launches_rect, "square": ss.launches,
-                  "biased": ba.launches}
+                  "biased": ba.launches, "fused": fa.launches}
     counts_c = phase_train(cvt_counts, torch, dev, "cvt_13",
-                           {True: {"streaming": 3, "rect": 10, "square": 0, "biased": 0},
-                            False: {"streaming": 0, "rect": 0, "square": 0, "biased": 0}})
+                           {True: {"streaming": 3, "rect": 10, "square": 0, "biased": 0,
+                                   "fused": 0},
+                            False: {"streaming": 0, "rect": 0, "square": 0, "biased": 0,
+                                    "fused": 0}})
+    mvit_counts = {"fused": fa.launches, "packed": pa.launches, "biased": ba.launches,
+                   "streaming": sa.launches, "square": ss.launches, "rect": ss.launches_rect}
+    counts_m = phase_train(mvit_counts, torch, dev, "mobile_vit_xs",
+                           {r: {"fused": 9 if r else 0, "packed": 0, "biased": 0, "streaming": 0,
+                                "square": 0, "rect": 0} for r in (True, False)}, image=256)
     torch.cuda.synchronize()
     ktimes = phase_kernel_times(pa, torch, dev)
     btimes = phase_biased_times(ba, torch, dev)
@@ -1298,6 +1547,7 @@ def main() -> int:
     stimes = phase_sinkhorn_times(ss, torch, dev)
     ttimes = phase_th_times(th, torch, dev)
     sttimes = phase_stream_times(sa, torch, dev)
+    ftimes = phase_fused_times(fa, ba, torch, dev)
     torch.cuda.synchronize()
     phase_step_times(torch, dev, "simple_vit_b16", 256, vit_train_flops_per_image())
     macs = swin_fwd_macs_per_image()
@@ -1326,12 +1576,21 @@ def main() -> int:
         f"the CvT paper publishes 4.5 G)")
     rates_v = phase_step_times(torch, dev, "cvt_13", 128, 3 * 2 * macs_v)
     log(f"timing: cvt_13 robust/vanilla img/s ratio {rates_v[True] / rates_v[False]:.4f}")
+    from noise_robust_vit_tpu_torch.models.mobile_vit import mobile_vit_macs_per_image
+
+    macs_m = mobile_vit_macs_per_image(create_model("mobile_vit_xs", num_classes=1000,
+                                                    device="meta"))
+    log(f"timing: mobile_vit_xs forward {macs_m / 1e9:.4f} GMACs per image at 256 px "
+        f"(convolutions, the transformers' Dense layers, q·kᵀ and attn·v, head)")
+    rates_m = phase_step_times(torch, dev, "mobile_vit_xs", 128, 3 * 2 * macs_m, image=256)
+    log(f"timing: mobile_vit_xs robust/vanilla img/s ratio {rates_m[True] / rates_m[False]:.4f}")
     torch.cuda.synchronize()
     phase_profile(torch, dev, "simple_vit_b16", 256)
     phase_profile(torch, dev, "swin_t", 128)
     phase_profile(torch, dev, "levit", 256)
     phase_profile(torch, dev, "cait", 128)
     phase_profile(torch, dev, "cvt_13", 128)
+    phase_profile(torch, dev, "mobile_vit_xs", 128, image=256)
 
     kernels = [
         kernel_entry("packed_attention_fwd", "packed_attention_fwd.cu", "block_attention.py:234",
@@ -1362,6 +1621,10 @@ def main() -> int:
         kernel_entry("streaming_attention_bwd", "streaming_attention_bwd.cu",
                      "streaming_sinkhorn.py:449", counts_c["streaming"]["bwd"], worst_st["bwd"],
                      sttimes["stage 1"], "bwd"),
+        kernel_entry("fused_attention_fwd", "fused_attention_fwd.cu", "sinkhorn_attention.py:147",
+                     counts_m["fused"]["fwd"], worst_f["fwd"], ftimes[True], "fwd"),
+        kernel_entry("fused_attention_bwd", "fused_attention_bwd.cu", "sinkhorn_attention.py:694",
+                     counts_m["fused"]["bwd"], worst_f["bwd"], ftimes[True], "bwd"),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -7,8 +7,9 @@ CPU tensors.
 """
 
 from .convert import convert_params
-from .models import CaiT, CvT, LeViT, SimpleViT, SwinTransformer, create_model
-from .ops import biased_attention, packed_attention, streaming_attention
+from .models import CaiT, CvT, LeViT, MobileViT, SimpleViT, SwinTransformer, create_model
+from .ops import biased_attention, fused_attention, packed_attention, streaming_attention
 
-__all__ = ["CaiT", "CvT", "LeViT", "SimpleViT", "SwinTransformer", "biased_attention",
-           "convert_params", "create_model", "packed_attention", "streaming_attention"]
+__all__ = ["CaiT", "CvT", "LeViT", "MobileViT", "SimpleViT", "SwinTransformer",
+           "biased_attention", "convert_params", "create_model", "fused_attention",
+           "packed_attention", "streaming_attention"]

@@ -20,6 +20,7 @@ from . import levit, swin
 from .cait import CaiT, _Transformer as _CaiTStage
 from .cvt import CvT
 from .layers import DropPath, init_params
+from .mobile_vit import MobileViT
 from .simple_vit import SimpleViT
 
 _REGISTRY: dict[str, Callable] = {}
@@ -110,3 +111,17 @@ def _cvt_13(num_classes, image_size, robust, dtype, device=None, **kw):
     64, kv stride 2, no dropout). CvT takes any image size, so
     ``image_size`` is not used, as in JAX."""
     return CvT(num_classes=num_classes, robust=robust, dtype=dtype, device=device, **kw)
+
+
+@register_model("mobile_vit_xs")
+def _mobile_vit_xs(num_classes, image_size, robust, dtype, device=None, **kw):
+    """MobileViT-XS as the JAX factory builds it (JAX factory.py:192-199):
+    dims 96/120/144, channels (16, 32, 48, 48, 64, 64, 80, 80, 96, 96, 384),
+    depths 2/4/3, expansion 4, kernel 3, patch 2×2. MobileViT takes any
+    image side that is a multiple of 64, so ``image_size`` is not used, as
+    in JAX."""
+    return MobileViT(
+        dims=kw.pop("dims", (96, 120, 144)),
+        channels=kw.pop("channels", (16, 32, 48, 48, 64, 64, 80, 80, 96, 96, 384)),
+        num_classes=num_classes, robust=robust, dtype=dtype, device=device, **kw,
+    )

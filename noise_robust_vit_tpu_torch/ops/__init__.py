@@ -1,10 +1,12 @@
 """Compute ops of the port (counterpart of ``noise_robust_vit_tpu/ops``)."""
 
-from .activations import gelu
+from .activations import gelu, silu
 from .attention import (
     biased_attention,
     biased_dispatch,
     dot_product_attention,
+    fused_attention,
+    fused_dispatch,
     packed_attention,
     packed_dispatch,
     streaming_attention,
@@ -25,6 +27,8 @@ __all__ = [
     "biased_dispatch",
     "dot_product_attention",
     "drop_path",
+    "fused_attention",
+    "fused_dispatch",
     "gelu",
     "packed_attention",
     "packed_dispatch",
@@ -32,6 +36,7 @@ __all__ = [
     "robust_softmax",
     "sinkhorn_attention",
     "sinkhorn_normalize",
+    "silu",
     "sinkhorn_scalings",
     "streaming_attention",
     "streaming_dispatch",

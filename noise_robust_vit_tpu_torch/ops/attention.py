@@ -1,15 +1,18 @@
 """Multi-head attention ops (counterpart of
 ``noise_robust_vit_tpu/ops/attention.py``): the plain vector-form path over
-``[B, H, N, D]`` tensors, and the dispatch to the packed-qkv and the biased
-kernels.
+``[B, H, N, D]`` tensors, and the dispatch to the packed-qkv, biased,
+streaming and fused q/k/v kernels.
 
 Dispatch rule: a packed ``[B, N, 3·H·D]`` tensor whose shape passes the
 packed kernels' gate goes to ``packed_attention``; a robust windowed
 attention whose shape passes the biased kernels' gate goes to
 ``biased_attention``; a robust q/k/v attention with more than 640 queries
 or keys (padded to 128, as JAX counts) inside the streaming kernels' gate
-goes to ``streaming_attention``. Each launches its CUDA kernel for a CUDA tensor and
-runs its plain PyTorch version for a CPU tensor. A shape outside the gate
+goes to ``streaming_attention``; a robust ``dot_product_attention`` call
+that the JAX package's fused kernel takes and whose shape passes the fused
+kernels' gate (MobileViT's 4 heads of width 8) goes to ``fused_attention``.
+Each launches its CUDA kernel for a CUDA tensor and runs its plain PyTorch
+version for a CPU tensor. A shape outside the gate
 takes ``dot_product_attention`` (or the model's own plain path). The choice
 is made on shape before the call, never after a kernel error.
 """
@@ -19,13 +22,14 @@ from __future__ import annotations
 import torch
 
 from .cuda.biased_attention import BiasedAttention, biased_attention_supported
+from .cuda.fused_attention import FusedAttention, fused_attention_supported
 from .cuda.packed_attention import PackedAttention, packed_attention_supported
 from .cuda.streaming_attention import StreamingAttention, streaming_attention_supported
 from .sinkhorn import sinkhorn_scalings
 
 __all__ = ["biased_attention", "biased_dispatch", "dot_product_attention",
-           "packed_attention", "packed_dispatch", "streaming_attention",
-           "streaming_dispatch"]
+           "fused_attention", "fused_dispatch", "packed_attention", "packed_dispatch",
+           "streaming_attention", "streaming_dispatch"]
 
 # Whether the packed kernels serve a self-attention shape (vanilla and robust
 # both take them): the kernels' own shape gate.
@@ -97,6 +101,38 @@ def streaming_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     bool(final_row_norm))
 
 
+def fused_dispatch(robust: bool, q_shape, k_shape, v_shape, has_bias: bool = False,
+                   has_mask: bool = False, sinkhorn_iters: int = 3, dtype=None) -> bool:
+    """Whether the fused q/k/v kernels serve a ``dot_product_attention``
+    call: the JAX package's policy (the Sinkhorn path only, ``ops/
+    attention.py::pallas_dispatch``) and its kernel's refusals
+    (``sinkhorn_attention.py::fused_attention``: no bias or mask, q and k of
+    one shape, ``round_up(N, 128) ≤ 1536``, D and DV ≤ 256), then the port's
+    kernel gate (D and DV from 4 to 32, a shared-memory budget) and, with
+    ``dtype``, its dtypes."""
+    if not robust or has_bias or has_mask:
+        return False
+    if len(q_shape) < 2 or tuple(q_shape) != tuple(k_shape):
+        return False
+    n, d, dv = q_shape[-2], q_shape[-1], v_shape[-1]
+    if (n + 127) // 128 * 128 > 1536 or d > 256 or dv > 256:
+        return False
+    return fused_attention_supported(n, d, dv, sinkhorn_iters, True, dtype)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float | None = None, robust: bool = False,
+                    sinkhorn_iters: int = 3, final_row_norm: bool = True) -> torch.Tensor:
+    """Fused attention at the q/k/v interface, never forming the N×N matrix
+    in device memory: ``q, k [..., N, D]``, ``v [..., N, DV]`` →
+    ``(softmax | Sinkhorn)(scale·q·kᵀ) · v`` ``[..., N, DV]`` in v's dtype
+    (softmax and the Sinkhorn schedule in float32)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return FusedAttention.apply(q, k, v, float(scale), bool(robust), int(sinkhorn_iters),
+                                bool(final_row_norm))
+
+
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           scale: float | None = None,
                           bias: torch.Tensor | None = None,
@@ -106,9 +142,15 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """``softmax(q·kᵀ·scale [+bias][mask])`` (optionally Sinkhorn-renormalized)
     ``· v`` over ``[..., N, D]``; returns ``v``'s dtype. Logits and the
     weights are float32, as the JAX package's ``preferred_element_type``.
-    ``mask`` is boolean (True = attend)."""
+    ``mask`` is boolean (True = attend). A call that ``fused_dispatch``
+    accepts takes ``fused_attention``; the rest the vector form below."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if q.dtype == k.dtype == v.dtype and fused_dispatch(
+            robust, q.shape, k.shape, v.shape, bias is not None, mask is not None,
+            sinkhorn_iters, q.dtype):
+        return fused_attention(q, k, v, scale=scale, robust=True, sinkhorn_iters=sinkhorn_iters,
+                               final_row_norm=final_row_norm)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         logits = logits + bias.float()

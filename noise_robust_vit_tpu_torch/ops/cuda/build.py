@@ -73,6 +73,12 @@ _ENTRIES = {
     # q, k, v, g, av, bv, dq, dk, dv, acc, rows, dtype, K, N, M, D, scale,
     # iters, final_row, tq, stream
     "nrv_streaming_attention_bwd": ([_VP] * 11 + [_I] * 5 + [_F] + [_I] * 3 + [_VP]),
+    # q, k, v, out, vecs, dtype, K, N, D, DV, scale, robust, iters, final_row,
+    # stream
+    "nrv_fused_attention_fwd": ([_VP] * 5 + [_I] * 5 + [_F] + [_I] * 3 + [_VP]),
+    # q, k, v, g, vecs, dq, dk, dv, dtype, K, N, D, DV, scale, robust, iters,
+    # final_row, stream
+    "nrv_fused_attention_bwd": ([_VP] * 8 + [_I] * 5 + [_F] + [_I] * 3 + [_VP]),
     "nrv_cuda_error_string": ([_I]),
 }
 
