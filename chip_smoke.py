@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU: builds the hand-written
 kernels, holds them against their plain PyTorch versions, takes a few
-SimpleViT-B/16, Swin-T, LeViT-128S, CaiT and CvT-13 @224 and MobileViT-XS
-@256 bf16 train steps through them, and times kernels and steps.
+SimpleViT-B/16 (with the fused LayerNorm switch off and on), vit_b_16,
+Swin-T, LeViT-128S, CaiT and CvT-13 @224 and MobileViT-XS @256 bf16 train
+steps through them, and times kernels and steps.
 
-    python3 chip_smoke.py     # all phases; ~5 minutes on an H100
+    python3 chip_smoke.py     # all phases; ~3 minutes on an H100
 
 Phases, one line each (or a few):
   1. device   the card's name and power limit, as nvidia-smi reports them;
@@ -12,8 +13,10 @@ Phases, one line each (or a few):
   2. build    nvcc build of noise_robust_vit_tpu_torch/ops/cuda/csrc (one nvcc
               a source, in parallel), seconds
   3. kernels  packed kernels against their plain versions at [8, 196|197,
-              2304] (H=12, D=64), vanilla and three Sinkhorn schedules, and at
-              the main path's [256, 196, 2304], vanilla and robust (3, final);
+              2304] (H=12, D=64), vanilla and three Sinkhorn schedules, at
+              SimpleViT-B/16's [256, 196, 2304], vanilla and robust (3,
+              final), and at vit_b_16's [256, 197, 2304] bf16, vanilla and
+              robust (4, no final row norm), with the bits of two runs;
               biased kernels against theirs at the four Swin-T stage shapes of
               a batch of 128 with their real window counts, swin_v2_t's N=64,
               LeViT's [256, 4, 196, 16] (DV 32), LeViT-256's stage 0
@@ -44,7 +47,14 @@ Phases, one line each (or a few):
               against theirs at MobileViT-XS's three stages [2048, 256 | 64 |
               16, 8] (512 sequences × 4 heads of 8) bf16 and float32, ragged
               N (50, 100), DV ≠ D and D = 32, every mode, out, residual rows,
-              dq, dk, dv, and the bits of two runs at each stage
+              dq, dk, dv, and the bits of two runs at each stage; the fused
+              LayerNorm kernels against theirs at SimpleViT-B/16's [50176,
+              768] bf16 and float32, D 128, 1024, 1280 and 8192, ragged row
+              counts (1, 500), y, dx, dscale and dbias (y and dx float32 atol
+              and rtol 1e-5, bf16 one bf16 ulp, rtol 8e-3, atol 1e-2;
+              dscale and dbias, sums over every row, to 1e-5 of their
+              largest magnitude, rtol 1e-4), the bits of two runs, and no
+              launch at D = 96 (outside the gate)
   4. slice    small SimpleViT, Swin v1/v2, LeViT and CaiT models, kernels against
               the plain path (LeViT in train mode, with its BN running
               statistics); 5 AdamW steps (lr 1e-4, wd 0.05) on one fixed
@@ -68,8 +78,17 @@ Phases, one line each (or a few):
               128 px card vs cpu in train mode (3 fused launches each way); 5
               + 5 steps of MobileViT-XS @256 bf16 at batch 64 (9 fused
               launches each way a robust step, no other kernel; none
-              vanilla); every earlier model's steps count 0 fused launches
-  5. timing   kernels against plain versions at [256, 196, 2304] (packed),
+              vanilla); every earlier model's steps count 0 fused launches;
+              a small SimpleViT (D 128) built with NRV_FUSED_LN=1 card vs
+              cpu (4 fused-LN launches each way on the card); small robust
+              f32 VisionTransformers card vs cpu, patch stem and conv stem
+              in train mode (BN statistics), 2 packed launches each way; 5 +
+              5 steps of SimpleViT-B/16 with the switch on (12 packed and 24
+              fused-LN launches each way a step) and of vit_b_16 (12 packed
+              each way a step on (4, no final row norm), 0 fused-LN); every
+              other model's steps count 0 fused-LN launches
+  5. timing   kernels against plain versions at [256, 196, 2304] (packed,
+              and at vit_b_16's [256, 197, 2304] on (4, no final)),
               [8192, 3, 49, 32], nW=64 (biased), with
               scaled_dot_product_attention as the vanilla yardstick, and
               [256, 8, 49, 196] (rect) and [128, 8, 197, 197] (square) f32
@@ -85,20 +104,28 @@ Phases, one line each (or a few):
               matrix held in shared memory); the train step of SimpleViT-B/16
               at batch 256, Swin-T at batch 128, LeViT-128S at batch 256,
               CaiT, CvT-13 and MobileViT-XS (256 px) at batch 128 (median of
-              3 windows): img/s, MFU against 989 TFLOP/s dense bf16, peak
-              memory, and CaiT's, CvT-13's and MobileViT-XS's robust/vanilla
-              ratios
+              3 windows of 5 steps after one warm-up step): img/s, MFU
+              against 989 TFLOP/s dense bf16, peak memory, and CaiT's,
+              CvT-13's and MobileViT-XS's robust/vanilla ratios; the fused
+              LayerNorm kernels at [50176, 768] bf16 beside their plain
+              versions, F.layer_norm (bf16 x, weight and bias;
+              backward through autograd) and the port's eager
+              LayerNorm module; vit_b_16 at batch 256 (MFU from 197 tokens)
+              and SimpleViT-B/16 with the switch on, and its on/off ratio
   6. profile  device time by op and kernel over one robust train step of
-              each model (torch.profiler), the top rows
-Then the card line again, a {"kernels": [...]} JSON line, and as the last
-line {"ok": true, "device": {...}}. Any failed check raises, and the script
-exits non-zero without printing the last line.
+              each model (torch.profiler), the top rows; vit_b_16 too
+Every phase logs its wall seconds ("time:" lines). Then the card line
+again, a {"kernels": [...]} JSON line, and as the last line {"ok": true,
+"device": {...}}. Any failed check raises, and the script exits non-zero
+without printing the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -125,9 +152,12 @@ def log(msg: str) -> None:
 
 
 def vit_train_flops_per_image(image=224, patch=16, dim=768, depth=12, heads=12,
-                              mlp=3072, classes=1000):
-    """bench.py's analytic train FLOPs per image (bwd ≈ 2× fwd)."""
-    n = (image // patch) ** 2
+                              mlp=3072, classes=1000, cls_token=False):
+    """bench.py's analytic train FLOPs per image (bwd ≈ 2× fwd), over the
+    (image/patch)² patches and, with ``cls_token``, one token more in the
+    blocks (vit_b_16's 197)."""
+    patches = (image // patch) ** 2
+    n = patches + int(cls_token)
     per_block = (
         2 * n * dim * (3 * dim)      # qkv proj
         + 2 * n * n * dim            # q@k^T
@@ -135,7 +165,7 @@ def vit_train_flops_per_image(image=224, patch=16, dim=768, depth=12, heads=12,
         + 2 * n * dim * dim          # out proj
         + 2 * n * dim * mlp * 2      # mlp fc1+fc2
     )
-    fwd = n * 2 * (patch * patch * 3) * dim + depth * per_block + 2 * dim * classes
+    fwd = patches * 2 * (patch * patch * 3) * dim + depth * per_block + 2 * dim * classes
     return 3 * fwd
 
 
@@ -202,6 +232,28 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def lap_clock():
+    """``lap(name)`` logs the wall seconds since the previous lap (or since
+    this call) and since this call: where the run's time goes."""
+    start = last = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        log(f"time: {name} {now - last:.1f} s (run {now - start:.1f} s)")
+        last = now
+    return lap
+
+
+def device_normal(torch, dev, rng, shape):
+    """Standard normal float32 ``shape`` drawn on the card from a generator
+    seeded by the numpy ``rng``: drawing the checks' hundreds of millions of
+    inputs on the host took tens of seconds."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(2**62)))
+    return torch.randn(shape, generator=gen, device=dev)
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
 
@@ -218,20 +270,23 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def phase_kernels(pa, torch, dev):
     """Kernel against plain version: every mode at [8, 196|197, 2304], and
-    vanilla and robust (3, final) at the main path's [256, 196, 2304], where
-    the grid has fewer blocks than heads and each block takes about 12 heads
-    in turn, reusing its scratch slot and shared vectors. Returns the
-    largest bfloat16 errors at the main path's shape (fwd out, bwd dqkv)."""
-    worst = {"fwd": 0.0, "bwd": 0.0}
+    the main paths' shapes at batch 256, where the grid has fewer blocks than
+    heads and each block takes about 12 heads in turn, reusing its scratch
+    slot and shared vectors: SimpleViT-B/16's [256, 196, 2304] vanilla and
+    robust (3, final), vit_b_16's [256, 197, 2304] bf16 vanilla and robust
+    (4, no final row norm), the latter also run twice for the same bits.
+    Returns the largest bfloat16 errors (fwd out, bwd dqkv) at each main
+    path's shape, keyed by its N."""
+    worst = {n: {"fwd": 0.0, "bwd": 0.0} for n in (196, 197)}
     rng = np.random.default_rng(0)
     h, d = 12, 64
     f32, bf16 = torch.float32, torch.bfloat16
     # (B, N, dtypes, modes)
     groups = [(8, 196, (f32, bf16), MODES), (8, 197, (f32,), MODES),
-              (256, 196, (f32, bf16), MODES[:2])]
+              (256, 196, (f32, bf16), MODES[:2]), (256, 197, (bf16,), [MODES[0], MODES[2]])]
     for b, n, dtypes, modes in groups:
-        qkv32 = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d), dtype=np.float32)).to(dev)
-        g32 = torch.from_numpy(rng.standard_normal((b, n, h * d), dtype=np.float32)).to(dev)
+        qkv32 = device_normal(torch, dev, rng, (b, n, 3 * h * d))
+        g32 = device_normal(torch, dev, rng, (b, n, h * d))
         kb = b * h
         per_block = math.ceil(kb / pa._n_slots(dev, kb))
         for dtype in dtypes:
@@ -260,8 +315,18 @@ def phase_kernels(pa, torch, dev):
                     torch.testing.assert_close(vecs_k, vecs_p, atol=1e-3, rtol=1e-3)
                     torch.testing.assert_close(dq_k.float(), dq_p.float(), atol=2e-2, rtol=2e-2)
                     if b == 256:
-                        worst["fwd"] = max(worst["fwd"], e_out)
-                        worst["bwd"] = max(worst["bwd"], e_dq)
+                        worst[n]["fwd"] = max(worst[n]["fwd"], e_out)
+                        worst[n]["bwd"] = max(worst[n]["bwd"], e_dq)
+                if (b, n) == (256, 197):
+                    out_2, vecs_2 = pa.packed_attention_fwd_cuda(qkv, *args)
+                    dq_2 = pa.packed_attention_bwd_cuda(qkv, g, vecs_2, *args)
+                    if not (torch.equal(out_2, out_k) and torch.equal(vecs_2, vecs_k)
+                            and torch.equal(dq_2, dq_k)):
+                        raise RuntimeError(f"packed kernels [{b},{n}] robust={int(robust)}: "
+                                           "two runs differ")
+                    log(f"kernels: [{b},{n},{3 * h * d}] robust={int(robust)} iters={iters} "
+                        f"final_row={int(final_row)}: two runs give the same bits")
+                    del out_2, vecs_2, dq_2
                 del out_k, vecs_k, dq_k, out_p, vecs_p, dq_p
         del qkv32, g32, qkv, g
     torch.cuda.empty_cache()
@@ -288,11 +353,9 @@ def phase_biased_kernels(ba, torch, dev):
               ("twins local", (8192, 8, 49, 64, 64), 1, True)]
     names = ["out", "vecs", "dq", "dk", "dv", "dbias"]
     for label, (bw, h, n, d, dv), nw, no_bias in cases:
-        q32, k32 = (torch.from_numpy(rng.standard_normal((bw, h, n, d), dtype=np.float32)).to(dev)
-                    for _ in range(2))
-        v32, g32 = (torch.from_numpy(rng.standard_normal((bw, h, n, dv), dtype=np.float32)).to(dev)
-                    for _ in range(2))
-        bias = torch.from_numpy(rng.standard_normal((nw, h, n, n), dtype=np.float32)).to(dev)
+        q32, k32 = (device_normal(torch, dev, rng, (bw, h, n, d)) for _ in range(2))
+        v32, g32 = (device_normal(torch, dev, rng, (bw, h, n, dv)) for _ in range(2))
+        bias = device_normal(torch, dev, rng, (nw, h, n, n))
         for dtype in (f32, bf16):
             q, k, v, g = (t.to(dtype) for t in (q32, k32, v32, g32))
             for robust, iters, final_row in MODES:
@@ -389,9 +452,9 @@ def phase_biased_times(ba, torch, dev, shape=SWIN_T_STAGES[0]):
     from these inputs."""
     (bw, h, n, d), nw = shape
     rng = np.random.default_rng(13)
-    q, k, v, g = (torch.from_numpy(rng.standard_normal((bw, h, n, d), dtype=np.float32)).to(dev, torch.bfloat16)
+    q, k, v, g = (device_normal(torch, dev, rng, (bw, h, n, d)).to(torch.bfloat16)
                   for _ in range(4))
-    bias = torch.from_numpy(rng.standard_normal((nw, h, n, n), dtype=np.float32)).to(dev)
+    bias = device_normal(torch, dev, rng, (nw, h, n, n))
     times = {}
     for robust in (True, False):
         args = (d ** -0.5, robust, 3, True, nw, False)
@@ -438,11 +501,9 @@ def phase_biased_levit_times(ba, torch, dev, shape=(64, 4, 196, 32, 64)):
     o/a and t1 32 columns at a time. Log only."""
     bw, h, n, d, dv = shape
     rng = np.random.default_rng(14)
-    q, k = (torch.from_numpy(rng.standard_normal((bw, h, n, d), dtype=np.float32)).to(dev, torch.bfloat16)
-            for _ in range(2))
-    v, g = (torch.from_numpy(rng.standard_normal((bw, h, n, dv), dtype=np.float32)).to(dev, torch.bfloat16)
-            for _ in range(2))
-    bias = torch.from_numpy(rng.standard_normal((1, h, n, n), dtype=np.float32)).to(dev)
+    q, k = (device_normal(torch, dev, rng, (bw, h, n, d)).to(torch.bfloat16) for _ in range(2))
+    v, g = (device_normal(torch, dev, rng, (bw, h, n, dv)).to(torch.bfloat16) for _ in range(2))
+    bias = device_normal(torch, dev, rng, (1, h, n, n))
     args = (d ** -0.5, True, 3, True, 1, False)
     _, vecs = ba.biased_attention_fwd_cuda(q, k, v, bias, *args)
     t = [cuda_ms(lambda: ba.biased_attention_fwd_cuda(q, k, v, bias, *args), 20),
@@ -490,8 +551,9 @@ def phase_train(counts, torch, dev, name, per_step, steps=5, batch=64, image=224
     from noise_robust_vit_tpu_torch import create_model
     from noise_robust_vit_tpu_torch.train import create_train_state
 
+    start = time.perf_counter()
     rng = np.random.default_rng(2)
-    x = torch.from_numpy(rng.standard_normal((batch, image, image, 3), dtype=np.float32)).to(dev, torch.bfloat16)
+    x = device_normal(torch, dev, rng, (batch, image, image, 3)).to(torch.bfloat16)
     y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
     total = {k: {"fwd": 0, "bwd": 0} for k in counts}
     for robust in (True, False):
@@ -520,6 +582,7 @@ def phase_train(counts, torch, dev, name, per_step, steps=5, batch=64, image=224
             total[k]["bwd"] += sum(step[k][1] for step in launches)
         del model, state
     torch.cuda.empty_cache()
+    log(f"time: train phase of {name} {time.perf_counter() - start:.1f} s")
     return total
 
 
@@ -529,7 +592,7 @@ def phase_swin_v2(ba, torch, dev, batch=32):
     from noise_robust_vit_tpu_torch import create_model
 
     rng = np.random.default_rng(12)
-    x = torch.from_numpy(rng.standard_normal((batch, 224, 224, 3), dtype=np.float32)).to(dev, torch.bfloat16)
+    x = device_normal(torch, dev, rng, (batch, 224, 224, 3)).to(torch.bfloat16)
     y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
     model = create_model("swin_v2_t", num_classes=1000, robust=True,
                          dtype=torch.bfloat16, device=dev, seed=0)
@@ -596,8 +659,8 @@ def phase_sinkhorn_kernels(ss, torch, dev):
     modes = [m[1:] for m in MODES if m[0]]
     for label, shape in SINKHORN_SHAPES:
         kind = "square" if shape[-1] == shape[-2] else "rect"
-        s32 = torch.from_numpy(2 * rng.standard_normal(shape, dtype=np.float32)).to(dev)
-        g32 = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+        s32 = 2 * device_normal(torch, dev, rng, shape)
+        g32 = device_normal(torch, dev, rng, shape)
         for dtype in (f32, bf16):
             logits, g = s32.to(dtype), g32.to(dtype)
             for iters, final_row in modes:
@@ -687,7 +750,7 @@ def phase_levit_256(ba, ss, torch, dev, batch=64):
     from noise_robust_vit_tpu_torch import create_model
 
     rng = np.random.default_rng(23)
-    x = torch.from_numpy(rng.standard_normal((batch, 224, 224, 3), dtype=np.float32)).to(dev, torch.bfloat16)
+    x = device_normal(torch, dev, rng, (batch, 224, 224, 3)).to(torch.bfloat16)
     y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
     model = create_model("LeViT_256", num_classes=1000, robust=True, dtype=torch.bfloat16,
                          device=dev, seed=0)
@@ -717,8 +780,8 @@ def phase_square_path(ss, torch, dev, shape=SQUARE_PATH):
     from noise_robust_vit_tpu_torch import ops
 
     rng = np.random.default_rng(25)
-    logits = torch.from_numpy(2 * rng.standard_normal(shape, dtype=np.float32)).to(dev)
-    g = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+    logits = 2 * device_normal(torch, dev, rng, shape)
+    g = device_normal(torch, dev, rng, shape)
     logits.requires_grad_(True)
     ss.launches.reset()
     out = ops.robust_softmax(logits, robust=True)
@@ -751,8 +814,8 @@ def phase_sinkhorn_times(ss, torch, dev):
     times = {}
     fp, bp, nt = chain_passes(True, 3, True)
     for kind, shape in (("rect", (256, 8, 49, 196)), ("square", SQUARE_PATH)):
-        logits = torch.from_numpy(2 * rng.standard_normal(shape, dtype=np.float32)).to(dev)
-        g = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+        logits = 2 * device_normal(torch, dev, rng, shape)
+        g = device_normal(torch, dev, rng, shape)
         if kind == "square":
             fwd_k = lambda: ss.sinkhorn_softmax_fwd_cuda(logits)  # noqa: E731
             fwd_p = lambda: ss.sinkhorn_softmax_fwd_plain(logits)  # noqa: E731
@@ -787,13 +850,17 @@ def phase_sinkhorn_times(ss, torch, dev):
     return times
 
 
-def phase_kernel_times(pa, torch, dev, b=256, n=196, h=12, d=64):
+def phase_kernel_times(pa, torch, dev, b=256, n=196, h=12, d=64, iters=3, final_row=True,
+                       modes=(True, False)):
+    """Packed kernels at bf16 [b, n, 3·h·d] on the robust schedule (iters,
+    final_row) and vanilla, beside their plain versions and, vanilla, SDPA;
+    ``modes`` picks the robust flags timed."""
     rng = np.random.default_rng(3)
-    qkv = torch.from_numpy(rng.standard_normal((b, n, 3 * h * d), dtype=np.float32)).to(dev, torch.bfloat16)
-    g = torch.from_numpy(rng.standard_normal((b, n, h * d), dtype=np.float32)).to(dev, torch.bfloat16)
+    qkv = device_normal(torch, dev, rng, (b, n, 3 * h * d)).to(torch.bfloat16)
+    g = device_normal(torch, dev, rng, (b, n, h * d)).to(torch.bfloat16)
     times = {}
-    for robust in (True, False):
-        args = (h, d, d ** -0.5, robust, 3, True)
+    for robust in modes:
+        args = (h, d, d ** -0.5, robust, iters, final_row)
         _, vecs = pa.packed_attention_fwd_cuda(qkv, *args)
         t = {
             "fwd": cuda_ms(lambda: pa.packed_attention_fwd_cuda(qkv, *args), 10),
@@ -810,11 +877,12 @@ def phase_kernel_times(pa, torch, dev, b=256, n=196, h=12, d=64):
         qkv_b, out_b, vec_b = qkv.numel() * 2, g.numel() * 2, vecs.numel() * 4
         (t["fwd_bound"], t["fwd_by"]), (t["bwd_bound"], t["bwd_by"]) = attention_work(
             b * h, n, d, d, (qkv_b, qkv_b + out_b + vec_b), (out_b + vec_b, qkv_b),
-            robust, 3, True, 0)
+            robust, iters, final_row, 0)
         times[robust] = t
         lib = "" if robust else (f"; sdpa fwd {t['fwd_lib']:.4f} bwd {t['bwd_lib']:.4f}")
+        sched = f"({iters}, {'final' if final_row else 'no final'})" if robust else "vanilla"
         log(f"timing: packed attention bf16 [{b},{n},{3 * h * d}] robust={int(robust)} "
-            f"(3, final) ms: fwd {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, bound "
+            f"{sched} ms: fwd {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, bound "
             f"{t['fwd_bound']:.4f} {t['fwd_by']}) bwd {t['bwd']:.4f} (plain "
             f"{t['bwd_plain']:.4f}, bound {t['bwd_bound']:.4f} {t['bwd_by']}){lib}")
     del qkv, g
@@ -822,7 +890,7 @@ def phase_kernel_times(pa, torch, dev, b=256, n=196, h=12, d=64):
     return times
 
 
-def phase_step_times(torch, dev, name, batch, flops, steps=10, windows=3, image=224):
+def phase_step_times(torch, dev, name, batch, flops, steps=5, windows=3, image=224):
     """Train step of `name` (bf16, 1000 classes, AdamW lr 1e-3) at `batch` of
     `image`-pixel images, vanilla then robust: median img/s of `windows`
     windows of `steps` steps, MFU from the analytic `flops` per image, and
@@ -830,8 +898,9 @@ def phase_step_times(torch, dev, name, batch, flops, steps=10, windows=3, image=
     from noise_robust_vit_tpu_torch import create_model
     from noise_robust_vit_tpu_torch.train import create_train_state
 
+    start = time.perf_counter()
     rng = np.random.default_rng(4)
-    x = torch.from_numpy(rng.standard_normal((batch, image, image, 3), dtype=np.float32)).to(dev, torch.bfloat16)
+    x = device_normal(torch, dev, rng, (batch, image, image, 3)).to(torch.bfloat16)
     y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
     result = {}
     for robust in (False, True):
@@ -856,18 +925,21 @@ def phase_step_times(torch, dev, name, batch, flops, steps=10, windows=3, image=
             f"peak mem {peak:.2f} GiB, loss {loss:.4f}")
         del model, state
     torch.cuda.empty_cache()
+    log(f"time: step times of {name} {time.perf_counter() - start:.1f} s")
     return result
 
 
-def phase_profile(torch, dev, name, batch, rows=25, image=224):
-    """Device time by op and kernel over one robust train step."""
+def phase_profile(torch, dev, name, batch, rows=25, image=224, tag=""):
+    """Device time by op and kernel over one robust train step; ``tag``
+    marks the log lines of a variant (the switch on)."""
     from torch.profiler import ProfilerActivity, profile
 
     from noise_robust_vit_tpu_torch import create_model
     from noise_robust_vit_tpu_torch.train import create_train_state
 
+    t0 = time.perf_counter()
     rng = np.random.default_rng(5)
-    x = torch.from_numpy(rng.standard_normal((batch, image, image, 3), dtype=np.float32)).to(dev, torch.bfloat16)
+    x = device_normal(torch, dev, rng, (batch, image, image, 3)).to(torch.bfloat16)
     y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
     model = create_model(name, num_classes=1000, image_size=image, robust=True,
                          dtype=torch.bfloat16, device=dev, seed=0)
@@ -878,17 +950,18 @@ def phase_profile(torch, dev, name, batch, rows=25, image=224):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state.train_step(x, y)
         torch.cuda.synchronize()
-    log(f"profile: {name} robust train step, batch {batch}, top rows by device time")
+    log(f"profile: {name}{tag} robust train step, batch {batch}, top rows by device time")
     events = prof.key_averages()
     log(events.table(sort_by="cuda_time_total", row_limit=rows))
     # the hand-written kernels (namespace nrv), which the table may rank
     # below its last row
     for evt in events:
         if "nrv::" in evt.key:
-            log(f"profile: {name} kernel {evt.key[:90]}: {evt.count} launches, "
+            log(f"profile: {name}{tag} kernel {evt.key[:90]}: {evt.count} launches, "
                 f"{evt.device_time_total / 1e3:.3f} ms of device time")
     del model, state
     torch.cuda.empty_cache()
+    log(f"time: profile of {name}{tag} {time.perf_counter() - t0:.1f} s")
 
 
 # The talking-heads kernels' checked shapes: CaiT @224 at batch 128
@@ -904,10 +977,8 @@ TH_SHAPES = [("cait", CAIT_TH, ("float32",)), ("cait", (16, 8, 196, 196), ("bflo
 def th_inputs(torch, dev, rng, shape, dtype=None):
     """dots (2·N(0, 1)), g, pre and post (N(0, 1)) on the card."""
     h = shape[1]
-    dots, g = (torch.from_numpy(scale * rng.standard_normal(shape, dtype=np.float32)).to(dev)
-               for scale in (2.0, 1.0))
-    pre, post = (torch.from_numpy(rng.standard_normal((h, h), dtype=np.float32)).to(dev)
-                 for _ in range(2))
+    dots, g = (scale * device_normal(torch, dev, rng, shape) for scale in (2.0, 1.0))
+    pre, post = (device_normal(torch, dev, rng, (h, h)) for _ in range(2))
     if dtype is not None:
         dots, g = dots.to(dtype), g.to(dtype)
     return dots, g, pre, post
@@ -1077,10 +1148,8 @@ STREAM_MODES = [(3, True), (4, False), (1, True)]
 def stream_inputs(torch, dev, rng, shape, dtype):
     """q, k, v and the upstream gradient, N(0, 1), on the card."""
     b, h, n, m, d = shape
-    q, g = (torch.from_numpy(rng.standard_normal((b, h, n, d), dtype=np.float32)).to(dev, dtype)
-            for _ in range(2))
-    k, v = (torch.from_numpy(rng.standard_normal((b, h, m, d), dtype=np.float32)).to(dev, dtype)
-            for _ in range(2))
+    q, g = (device_normal(torch, dev, rng, (b, h, n, d)).to(dtype) for _ in range(2))
+    k, v = (device_normal(torch, dev, rng, (b, h, m, d)).to(dtype) for _ in range(2))
     return q, k, v, g
 
 
@@ -1265,10 +1334,8 @@ FUSED_SHAPES = [("mobile_vit_xs stage 1", MVIT_F1, ("bfloat16", "float32")),
 def fused_inputs(torch, dev, rng, shape, dtype):
     """q, k [K, N, D] and v, g [K, N, DV], N(0, 1), on the card."""
     kb, n, d, dv = shape
-    q, k = (torch.from_numpy(rng.standard_normal((kb, n, d), dtype=np.float32)).to(dev, dtype)
-            for _ in range(2))
-    v, g = (torch.from_numpy(rng.standard_normal((kb, n, dv), dtype=np.float32)).to(dev, dtype)
-            for _ in range(2))
+    q, k = (device_normal(torch, dev, rng, (kb, n, d)).to(dtype) for _ in range(2))
+    v, g = (device_normal(torch, dev, rng, (kb, n, dv)).to(dtype) for _ in range(2))
     return q, k, v, g
 
 
@@ -1460,8 +1527,295 @@ def phase_fused_times(fa, ba, torch, dev):
     return times
 
 
+# The fused LayerNorm kernels' checked shapes, (rows, D, dtypes): SimpleViT-B/16
+# at batch 256 ([256·196, 768] bf16, its 24 + 24 calls a step with
+# NRV_FUSED_LN=1), D of 128, 1024 (the last warp-per-row width), 1280
+# (vit_h's width, one block a row) and 8192 (the gate's largest), ragged
+# row counts
+LN_MAIN = (50176, 768)
+LN_SHAPES = [(*LN_MAIN, ("bfloat16", "float32")), (500, 128, ("float32", "bfloat16")),
+             (1, 768, ("bfloat16",)), (500, 1024, ("float32", "bfloat16")),
+             (500, 1280, ("float32", "bfloat16")), (63, 8192, ("float32", "bfloat16")),
+             (1, 8192, ("float32",))]
+
+
+def ln_inputs(torch, dev, rng, rows, d, dtype):
+    """x (N(1, 3²)), scale near 1, bias, dy (N(0, 1)) on the card."""
+    x = (1 + 3 * device_normal(torch, dev, rng, (rows, d))).to(dtype)
+    g = 1 + 0.2 * device_normal(torch, dev, rng, d)
+    b = 0.1 * device_normal(torch, dev, rng, d)
+    dy = device_normal(torch, dev, rng, (rows, d)).to(dtype)
+    return x, g, b, dy
+
+
+def ln_pairs(fl, torch, x, g, b, dy):
+    """(kernel, plain) results on the same inputs: y, dx, dscale, dbias."""
+    got = (fl.fused_ln_fwd_cuda(x, g, b), *fl.fused_ln_bwd_cuda(x, g, dy))
+    torch.cuda.synchronize()
+    want = (fl.fused_ln_fwd_plain(x, g, b), *fl.fused_ln_bwd_plain(x, g, dy))
+    torch.cuda.synchronize()
+    return got, want
+
+
+def phase_ln_kernels(fl, torch, dev):
+    """Fused LayerNorm kernels against their plain versions at LN_SHAPES: y
+    and dx float32 atol and rtol 1e-5 (rsqrt and the sums' order differ),
+    bfloat16 one bf16 ulp (rtol 8e-3, atol 1e-2 near 0); dscale and dbias,
+    sums over every row in another order, rtol 1e-4 and atol 1e-5 of the
+    tensor's largest magnitude. Then two runs at the main path's shape give
+    the same bits, and a D outside the gate (96) is refused by the kernel
+    wrappers and launches nothing through FusedLayerNorm. Returns the largest
+    bfloat16 errors at the main path's shape: fwd (y), bwd (dx, dscale,
+    dbias)."""
+    from noise_robust_vit_tpu_torch.ops.norms import FusedLayerNorm
+
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    rng = np.random.default_rng(60)
+    names = ["y", "dx", "dscale", "dbias"]
+    for rows, d, dnames in LN_SHAPES:
+        for dname in dnames:
+            dtype = getattr(torch, dname)
+            bf16 = dtype == torch.bfloat16
+            x, g, b, dy = ln_inputs(torch, dev, rng, rows, d, dtype)
+            got, want = ln_pairs(fl, torch, x, g, b, dy)
+            errs = {nm: (a.float() - w.float()).abs().max().item()
+                    for nm, a, w in zip(names, got, want)}
+            log(f"kernels: fused_ln {dname} [{rows},{d}] max_abs_err "
+                + " ".join(f"{nm}={e:.3g}" for nm, e in errs.items()))
+            for nm, a, w in zip(names, got, want):
+                if nm in ("dscale", "dbias"):
+                    torch.testing.assert_close(a, w, atol=1e-5 * w.abs().max().item(),
+                                               rtol=1e-4, msg=nm)
+                elif bf16:
+                    torch.testing.assert_close(a.float(), w.float(), atol=1e-2, rtol=8e-3, msg=nm)
+                else:
+                    torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5, msg=nm)
+            if (rows, d) == LN_MAIN and bf16:
+                worst["fwd"] = errs["y"]
+                worst["bwd"] = max(errs["dx"], errs["dscale"], errs["dbias"])
+                again = ln_pairs(fl, torch, x, g, b, dy)[0]
+                if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                    raise RuntimeError("fused_ln: two runs gave different bits")
+                log(f"kernels: fused_ln [{rows},{d}] {dname}: two runs give the same bits "
+                    f"(y, dx, dscale, dbias)")
+                del again
+            del x, g, b, dy, got, want
+        torch.cuda.empty_cache()
+    x, g, b, dy = ln_inputs(torch, dev, rng, 64, 96, torch.float32)
+    for fn, args in ((fl.fused_ln_fwd_cuda, (x, g, b)), (fl.fused_ln_bwd_cuda, (x, g, dy))):
+        try:
+            fn(*args)
+        except ValueError:
+            pass
+        else:
+            raise RuntimeError(f"fused_ln: {fn.__name__} took D = 96")
+    mod = FusedLayerNorm(96, device=dev)
+    xx = x.clone().requires_grad_(True)
+    fl.launches.reset()
+    mod(xx).backward(dy)
+    torch.cuda.synchronize()
+    if (fl.launches.fwd, fl.launches.bwd) != (0, 0):
+        raise RuntimeError(f"fused_ln: D = 96 launched {(fl.launches.fwd, fl.launches.bwd)}")
+    log("kernels: fused_ln D = 96 (outside the gate): refused by the kernel wrappers, no launch "
+        "through FusedLayerNorm")
+    return worst
+
+
+@contextlib.contextmanager
+def fused_ln_switch():
+    """``NRV_FUSED_LN=1`` while models are built inside the block; the
+    variable's earlier state is restored afterwards."""
+    before = os.environ.get("NRV_FUSED_LN")
+    os.environ["NRV_FUSED_LN"] = "1"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("NRV_FUSED_LN")
+        else:
+            os.environ["NRV_FUSED_LN"] = before
+
+
+def card_vs_cpu(torch, dev, build, x, y, counts, train=False):
+    """``build(device)`` on the CPU and on the card with the CPU model's
+    state: logits, every parameter gradient and the buffers after one
+    forward and backward (atol 1e-4, rtol 1e-3), and the launches of each
+    counter on each side. Returns the largest gradient and buffer errors and
+    the launches (cpu, card)."""
+    cpu = build("cpu")
+    gpu = build(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    outs = []
+    for model, xx, yy in ((cpu, x, y), (gpu, x.to(dev), y.to(dev))):
+        model.train(train)
+        for c in counts.values():
+            c.reset()
+        logits = model(xx)
+        torch.nn.functional.cross_entropy(logits.float(), yy).backward()
+        outs.append((logits.detach().cpu(),
+                     {k: p.grad.cpu() for k, p in model.named_parameters()},
+                     {k: b.cpu() for k, b in model.named_buffers()},
+                     {k: (c.fwd, c.bwd) for k, c in counts.items()}))
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-3)
+    for i in (1, 2):
+        for k, v in outs[0][i].items():
+            torch.testing.assert_close(outs[1][i][k], v, atol=1e-4, rtol=1e-3, msg=k)
+    err = max((outs[1][1][k] - g).abs().max().item() for k, g in outs[0][1].items())
+    err_bn = max([(outs[1][2][k] - v).abs().max().item() for k, v in outs[0][2].items()],
+                 default=0.0)
+    return err, err_bn, outs[0][3], outs[1][3]
+
+
+def phase_small_fused_ln_model(fl, pa, torch, dev):
+    """The switch's wiring through the fused LayerNorm kernels: a small
+    robust float32 SimpleViT (dim 128, depth 2) built with NRV_FUSED_LN=1 on
+    the card against the same weights on the CPU. Every parameter is
+    perturbed from a seed. 4 fused-LN and 2 packed launches each way on the
+    card, none on the CPU."""
+    from noise_robust_vit_tpu_torch import SimpleViT
+
+    kw = dict(num_classes=10, image_size=64, patch_size=8, robust=True, dim=128, depth=2,
+              heads=2, mlp_dim=256, dim_head=64)
+    gen = torch.Generator().manual_seed(61)
+
+    def build(device):
+        with fused_ln_switch():
+            model = SimpleViT(device=device, **kw)
+        if device == "cpu":
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.add_(0.1 * torch.randn(p.shape, generator=gen))
+        return model
+
+    rng = np.random.default_rng(62)
+    x = torch.from_numpy(rng.standard_normal((4, 64, 64, 3), dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, size=4))
+    counts = {"fused_ln": fl.launches, "packed": pa.launches}
+    err, _, on_cpu, on_card = card_vs_cpu(torch, dev, build, x, y, counts)
+    want = {"fused_ln": (4, 4), "packed": (2, 2)}
+    if on_card != want or any(v != (0, 0) for v in on_cpu.values()):
+        raise RuntimeError(f"small SimpleViT with NRV_FUSED_LN=1: launches cpu {on_cpu}, "
+                           f"card {on_card}, expected 0s and {want}")
+    log(f"slice: small SimpleViT f32 robust NRV_FUSED_LN=1 card vs cpu: logits and grads agree "
+        f"(max grad err {err:.3g}), launches fused_ln 4/4, packed 2/2 on the card, 0 on the cpu")
+
+
+VIT_SMALL = dict(image_size=32, patch_size=8, num_layers=2, num_heads=2, hidden_dim=64,
+                 mlp_dim=128, num_classes=10)
+
+
+def phase_small_vit(pa, fl, torch, dev):
+    """The VisionTransformer wiring through the packed kernels: small robust
+    float32 models (32 px, patch 8, 2 layers of 2 heads × 32), with the patch
+    stem in eval mode and the conv-BN-ReLU stem in train mode (BN running
+    statistics), on the card against the same weights on the CPU. Every
+    parameter is perturbed from a seed (the head is zero at init). 2 packed
+    launches each way on the card, none on the CPU, no fused-LN launch."""
+    from noise_robust_vit_tpu_torch import VisionTransformer
+    from noise_robust_vit_tpu_torch.models.vision_transformer import ConvStemConfig
+
+    rng = np.random.default_rng(63)
+    x = torch.from_numpy(rng.standard_normal((4, 32, 32, 3), dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, size=4))
+    counts = {"packed": pa.launches, "fused_ln": fl.launches}
+    stem = [ConvStemConfig(16, 3, 2), ConvStemConfig(24, 3, 2), ConvStemConfig(32, 3, 2)]
+    for label, extra, train in (("patch stem", {}, False),
+                                ("conv stem train mode", {"conv_stem_configs": stem}, True)):
+        gen = torch.Generator().manual_seed(64)
+
+        def build(device):
+            model = VisionTransformer(robust=True, device=device, **VIT_SMALL, **extra)
+            if device == "cpu":
+                with torch.no_grad():
+                    for p in model.parameters():
+                        p.add_(0.1 * torch.randn(p.shape, generator=gen))
+            return model
+
+        err, err_bn, on_cpu, on_card = card_vs_cpu(torch, dev, build, x, y, counts, train)
+        want = {"packed": (2, 2), "fused_ln": (0, 0)}
+        if on_card != want or any(v != (0, 0) for v in on_cpu.values()):
+            raise RuntimeError(f"small VisionTransformer {label}: launches cpu {on_cpu}, card "
+                               f"{on_card}, expected 0s and {want}")
+        log(f"slice: small VisionTransformer f32 robust {label} card vs cpu: logits, grads "
+            f"and buffers agree (max grad err {err:.3g}, stats {err_bn:.3g}), packed launches "
+            f"2/2 on the card, 0 on the cpu")
+
+
+def phase_vit_train(pa, fl, torch, dev, counts):
+    """phase_train for vit_b_16, recording the schedule of every packed
+    forward launch: (robust, 4, no final row norm) in each mode."""
+    real = pa.packed_attention_fwd_cuda
+    seen = []
+
+    def spy(qkv, heads, dim_head, scale, robust=False, iters=3, final_row=True):
+        seen.append((bool(robust), int(iters), bool(final_row)))
+        return real(qkv, heads, dim_head, scale, robust, iters, final_row)
+
+    pa.packed_attention_fwd_cuda = spy
+    try:
+        total = phase_train(counts, torch, dev, "vit_b_16",
+                            {r: {"packed": 12, "fused_ln": 0} for r in (True, False)})
+    finally:
+        pa.packed_attention_fwd_cuda = real
+    if sorted(set(seen)) != [(False, 4, False), (True, 4, False)]:
+        raise RuntimeError(f"vit_b_16: packed schedules {sorted(set(seen))}")
+    log(f"slice: vit_b_16 packed forward launches ran (robust, iters, final_row) "
+        f"{sorted(set(seen))}")
+    return total
+
+
+def phase_ln_times(fl, torch, dev, shape=LN_MAIN):
+    """Fused LayerNorm kernels at SimpleViT-B/16's [50176, 768] bf16 beside
+    their plain versions, F.layer_norm on the same x (bf16 x, weight and
+    bias, the weight and bias rounded to bf16: it takes no mixed types; its
+    backward to x, weight and bias through autograd: the library
+    yardstick) and the port's eager LayerNorm module (x to
+    float32, F.layer_norm, back to bf16: what the switch replaces). Bounds
+    from these inputs: forward reads x, scale, bias and writes y; backward
+    reads x, dy, scale and writes dx, dscale, dbias; ~8 and ~16 float32
+    operations an element."""
+    from noise_robust_vit_tpu_torch.models.layers import LayerNorm
+
+    rows, d = shape
+    rng = np.random.default_rng(65)
+    x, g, b, dy = ln_inputs(torch, dev, rng, rows, d, torch.bfloat16)
+    t = {"fwd": cuda_ms(lambda: fl.fused_ln_fwd_cuda(x, g, b), 20),
+         "fwd_plain": cuda_ms(lambda: fl.fused_ln_fwd_plain(x, g, b), 10),
+         "bwd": cuda_ms(lambda: fl.fused_ln_bwd_cuda(x, g, dy), 20),
+         "bwd_plain": cuda_ms(lambda: fl.fused_ln_bwd_plain(x, g, dy), 10)}
+    ln = torch.nn.functional.layer_norm
+    gb, bb = g.to(torch.bfloat16), b.to(torch.bfloat16)
+    t["fwd_lib"] = cuda_ms(lambda: ln(x, (d,), gb, bb, 1e-5), 20)
+    leaves = [v.detach().requires_grad_(True) for v in (x, gb, bb)]
+    out = ln(leaves[0], (d,), leaves[1], leaves[2], 1e-5)
+    t["bwd_lib"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, dy, retain_graph=True), 20)
+    eager = LayerNorm(d, dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        eager.weight.copy_(g)
+        eager.bias.copy_(b)
+    eager_fwd = cuda_ms(lambda: eager(x), 20)
+    xe = x.detach().requires_grad_(True)
+    out_e = eager(xe)
+    params = [xe, eager.weight, eager.bias]
+    eager_bwd = cuda_ms(lambda: torch.autograd.grad(out_e, params, dy, retain_graph=True), 20)
+    el = x.numel()
+    act, vec = el * 2, d * 4
+    t["fwd_bound"], t["fwd_by"] = bound_ms(2 * act + 2 * vec, 0, 8 * el)
+    t["bwd_bound"], t["bwd_by"] = bound_ms(3 * act + 3 * vec, 0, 16 * el)
+    t["eager_fwd"], t["eager_bwd"] = eager_fwd, eager_bwd
+    log(f"timing: fused_ln bf16 [{rows},{d}] ms: fwd {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, "
+        f"bound {t['fwd_bound']:.4f} {t['fwd_by']}) bwd {t['bwd']:.4f} (plain "
+        f"{t['bwd_plain']:.4f}, bound {t['bwd_bound']:.4f} {t['bwd_by']}); F.layer_norm (bf16 "
+        f"x, weight and bias) fwd {t['fwd_lib']:.4f} bwd {t['bwd_lib']:.4f}; the port's "
+        f"eager LayerNorm (f32 math, bf16 out) fwd {eager_fwd:.4f} bwd {eager_bwd:.4f}")
+    del x, g, b, gb, bb, dy, leaves, out, xe, out_e, params
+    torch.cuda.empty_cache()
+    return t
+
+
 def kernel_entry(name, src, replaces, launches, err, t, direction):
-    """One row of the {"kernels": [...]} line: the robust (3, final) times."""
+    """One row of the {"kernels": [...]} line: the times ``t`` of the robust
+    schedule the row's path runs."""
     return {"name": name, "route": "cuda", "source": CSRC + src, "replaces": PALLAS + replaces,
             "launches": launches, "max_abs_err": err, "ms": t[direction],
             "plain_ms": t[direction + "_plain"], "bound_ms": t[direction + "_bound"],
@@ -1475,6 +1829,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    lap = lap_clock()
+    # every model is built with the plain LayerNorm unless a phase sets the
+    # switch (fused_ln_switch): an exported NRV_FUSED_LN would break the
+    # launch counts
+    if os.environ.pop("NRV_FUSED_LN", None) is not None:
+        log("device: NRV_FUSED_LN cleared from the environment")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"device: {card_line()} | torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1483,6 +1843,7 @@ def main() -> int:
     from noise_robust_vit_tpu_torch.ops.cuda import biased_attention as ba
     from noise_robust_vit_tpu_torch.ops.cuda import build
     from noise_robust_vit_tpu_torch.ops.cuda import fused_attention as fa
+    from noise_robust_vit_tpu_torch.ops.cuda import fused_ln as fl
     from noise_robust_vit_tpu_torch.ops.cuda import packed_attention as pa
     from noise_robust_vit_tpu_torch.ops.cuda import sinkhorn_softmax as ss
     from noise_robust_vit_tpu_torch.ops.cuda import streaming_attention as sa
@@ -1492,64 +1853,112 @@ def main() -> int:
     lib_path = build.build()
     build.load_library()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
+    lap("build")
 
     worst = phase_kernels(pa, torch, dev)
+    lap("packed kernel checks")
     worst_b = phase_biased_kernels(ba, torch, dev)
+    lap("biased kernel checks")
     worst_s = phase_sinkhorn_kernels(ss, torch, dev)
+    lap("sinkhorn softmax kernel checks")
     worst_t = phase_th_kernels(th, torch, dev)
+    lap("talking-heads kernel checks")
     worst_st = phase_stream_kernels(sa, torch, dev)
+    lap("streaming kernel checks")
     worst_f = phase_fused_kernels(fa, torch, dev)
+    lap("fused kernel checks")
+    worst_ln = phase_ln_kernels(fl, torch, dev)
     torch.cuda.synchronize()
+    lap("fused LayerNorm kernel checks")
     phase_small_model(torch, dev)
     phase_small_swin(ba, torch, dev)
     phase_small_levit(ba, ss, torch, dev)
     phase_small_cait(th, torch, dev)
     phase_small_cvt(sa, ss, torch, dev)
     phase_small_mobile_vit(fa, torch, dev)
+    phase_small_fused_ln_model(fl, pa, torch, dev)
+    phase_small_vit(pa, fl, torch, dev)
     torch.cuda.synchronize()
+    lap("small models card vs cpu")
     # the fused q/k/v kernels serve MobileViT's transformers and no site of
-    # the earlier models: their paths count 0 fused launches
-    counts = phase_train({"packed": pa.launches, "fused": fa.launches}, torch, dev,
-                         "simple_vit_b16", {True: {"packed": 12, "fused": 0},
-                                            False: {"packed": 12, "fused": 0}})["packed"]
-    counts_b = phase_train({"biased": ba.launches, "fused": fa.launches}, torch, dev, "swin_t",
-                           {True: {"biased": 12, "fused": 0},
-                            False: {"biased": 0, "fused": 0}})["biased"]
+    # the earlier models: their paths count 0 fused launches; the fused
+    # LayerNorm serves only models built with NRV_FUSED_LN=1
+    counts = phase_train({"packed": pa.launches, "fused": fa.launches, "fused_ln": fl.launches},
+                         torch, dev, "simple_vit_b16",
+                         {r: {"packed": 12, "fused": 0, "fused_ln": 0}
+                          for r in (True, False)})["packed"]
+    with fused_ln_switch():
+        counts_ln = phase_train({"packed": pa.launches, "fused_ln": fl.launches}, torch, dev,
+                                "simple_vit_b16",
+                                {r: {"packed": 12, "fused_ln": 24} for r in (True, False)})
+    log("slice: simple_vit_b16 above with NRV_FUSED_LN=1")
+    counts_v = phase_vit_train(pa, fl, torch, dev, {"packed": pa.launches,
+                                                    "fused_ln": fl.launches})
+    counts_b = phase_train({"biased": ba.launches, "fused": fa.launches, "fused_ln": fl.launches},
+                           torch, dev, "swin_t",
+                           {True: {"biased": 12, "fused": 0, "fused_ln": 0},
+                            False: {"biased": 0, "fused": 0, "fused_ln": 0}})["biased"]
     phase_swin_v2(ba, torch, dev)
     levit_counts = {"biased": ba.launches, "rect": ss.launches_rect, "square": ss.launches,
-                    "fused": fa.launches}
+                    "fused": fa.launches, "fused_ln": fl.launches}
     counts_l = phase_train(levit_counts, torch, dev, "levit",
-                           {True: {"biased": 9, "rect": 2, "square": 0, "fused": 0},
-                            False: {"biased": 0, "rect": 0, "square": 0, "fused": 0}})
+                           {True: {"biased": 9, "rect": 2, "square": 0, "fused": 0,
+                                   "fused_ln": 0},
+                            False: {"biased": 0, "rect": 0, "square": 0, "fused": 0,
+                                    "fused_ln": 0}})
     phase_levit_256(ba, ss, torch, dev)
     counts_sq = phase_square_path(ss, torch, dev)
     cait_counts = {"talking_heads": th.launches, "square": ss.launches, "rect": ss.launches_rect,
-                   "fused": fa.launches}
+                   "fused": fa.launches, "fused_ln": fl.launches}
     counts_t = phase_train(cait_counts, torch, dev, "cait",
-                           {True: {"talking_heads": 6, "square": 0, "rect": 0, "fused": 0},
-                            False: {"talking_heads": 0, "square": 0, "rect": 0, "fused": 0}})
+                           {True: {"talking_heads": 6, "square": 0, "rect": 0, "fused": 0,
+                                   "fused_ln": 0},
+                            False: {"talking_heads": 0, "square": 0, "rect": 0, "fused": 0,
+                                    "fused_ln": 0}})
     cvt_counts = {"streaming": sa.launches, "rect": ss.launches_rect, "square": ss.launches,
-                  "biased": ba.launches, "fused": fa.launches}
+                  "biased": ba.launches, "fused": fa.launches, "fused_ln": fl.launches}
     counts_c = phase_train(cvt_counts, torch, dev, "cvt_13",
                            {True: {"streaming": 3, "rect": 10, "square": 0, "biased": 0,
-                                   "fused": 0},
+                                   "fused": 0, "fused_ln": 0},
                             False: {"streaming": 0, "rect": 0, "square": 0, "biased": 0,
-                                    "fused": 0}})
+                                    "fused": 0, "fused_ln": 0}})
     mvit_counts = {"fused": fa.launches, "packed": pa.launches, "biased": ba.launches,
-                   "streaming": sa.launches, "square": ss.launches, "rect": ss.launches_rect}
+                   "streaming": sa.launches, "square": ss.launches, "rect": ss.launches_rect,
+                   "fused_ln": fl.launches}
     counts_m = phase_train(mvit_counts, torch, dev, "mobile_vit_xs",
                            {r: {"fused": 9 if r else 0, "packed": 0, "biased": 0, "streaming": 0,
-                                "square": 0, "rect": 0} for r in (True, False)}, image=256)
+                                "square": 0, "rect": 0, "fused_ln": 0} for r in (True, False)},
+                           image=256)
     torch.cuda.synchronize()
+    lap("train phases")
     ktimes = phase_kernel_times(pa, torch, dev)
+    ktimes_v = phase_kernel_times(pa, torch, dev, n=197, iters=4, final_row=False,
+                                  modes=(True,))
+    lap("packed timing")
     btimes = phase_biased_times(ba, torch, dev)
     phase_biased_levit_times(ba, torch, dev)
+    lap("biased timing")
     stimes = phase_sinkhorn_times(ss, torch, dev)
+    lap("sinkhorn softmax timing")
     ttimes = phase_th_times(th, torch, dev)
+    lap("talking-heads timing")
     sttimes = phase_stream_times(sa, torch, dev)
+    lap("streaming timing")
     ftimes = phase_fused_times(fa, ba, torch, dev)
+    lap("fused timing")
+    ln_times = phase_ln_times(fl, torch, dev)
     torch.cuda.synchronize()
-    phase_step_times(torch, dev, "simple_vit_b16", 256, vit_train_flops_per_image())
+    lap("fused LayerNorm timing")
+    rates_s = phase_step_times(torch, dev, "simple_vit_b16", 256, vit_train_flops_per_image())
+    with fused_ln_switch():
+        rates_ln = phase_step_times(torch, dev, "simple_vit_b16", 256,
+                                    vit_train_flops_per_image())
+    log("timing: simple_vit_b16 above with NRV_FUSED_LN=1; on/off img/s ratio vanilla "
+        f"{rates_ln[False] / rates_s[False]:.4f}, robust {rates_ln[True] / rates_s[True]:.4f}")
+    flops_v = vit_train_flops_per_image(cls_token=True)
+    log(f"timing: vit_b_16 train FLOPs per image {flops_v / 1e9:.4f} G (197 tokens)")
+    rates_vit = phase_step_times(torch, dev, "vit_b_16", 256, flops_v)
+    log(f"timing: vit_b_16 robust/vanilla img/s ratio {rates_vit[True] / rates_vit[False]:.4f}")
     macs = swin_fwd_macs_per_image()
     log(f"timing: swin_t forward {macs / 1e9:.4f} GMACs per image (torchvision "
         f"publishes 4.49 GFLOPS, counted as multiply-adds)")
@@ -1586,17 +1995,28 @@ def main() -> int:
     log(f"timing: mobile_vit_xs robust/vanilla img/s ratio {rates_m[True] / rates_m[False]:.4f}")
     torch.cuda.synchronize()
     phase_profile(torch, dev, "simple_vit_b16", 256)
+    phase_profile(torch, dev, "vit_b_16", 256)
     phase_profile(torch, dev, "swin_t", 128)
     phase_profile(torch, dev, "levit", 256)
     phase_profile(torch, dev, "cait", 128)
     phase_profile(torch, dev, "cvt_13", 128)
     phase_profile(torch, dev, "mobile_vit_xs", 128, image=256)
+    lap("step times and profiles")
 
+    # the packed kernels serve two main paths, each with its own row:
+    # SimpleViT-B/16 at N 196 on (3, final) and vit_b_16 at N 197 on (4, no
+    # final row norm)
     kernels = [
         kernel_entry("packed_attention_fwd", "packed_attention_fwd.cu", "block_attention.py:234",
-                     counts["fwd"], worst["fwd"], ktimes[True], "fwd"),
+                     counts["fwd"], worst[196]["fwd"], ktimes[True], "fwd"),
         kernel_entry("packed_attention_bwd", "packed_attention_bwd.cu", "block_attention.py:284",
-                     counts["bwd"], worst["bwd"], ktimes[True], "bwd"),
+                     counts["bwd"], worst[196]["bwd"], ktimes[True], "bwd"),
+        kernel_entry("packed_attention_fwd vit_b_16", "packed_attention_fwd.cu",
+                     "block_attention.py:234", counts_v["packed"]["fwd"], worst[197]["fwd"],
+                     ktimes_v[True], "fwd"),
+        kernel_entry("packed_attention_bwd vit_b_16", "packed_attention_bwd.cu",
+                     "block_attention.py:284", counts_v["packed"]["bwd"], worst[197]["bwd"],
+                     ktimes_v[True], "bwd"),
         kernel_entry("biased_attention_fwd", "biased_attention_fwd.cu", "biased_attention.py:230",
                      counts_b["fwd"], worst_b["fwd"], btimes[True], "fwd"),
         kernel_entry("biased_attention_bwd", "biased_attention_bwd.cu", "biased_attention.py:296",
@@ -1625,6 +2045,10 @@ def main() -> int:
                      counts_m["fused"]["fwd"], worst_f["fwd"], ftimes[True], "fwd"),
         kernel_entry("fused_attention_bwd", "fused_attention_bwd.cu", "sinkhorn_attention.py:694",
                      counts_m["fused"]["bwd"], worst_f["bwd"], ftimes[True], "bwd"),
+        kernel_entry("fused_ln_fwd", "fused_ln_fwd.cu", "fused_ln.py:90",
+                     counts_ln["fused_ln"]["fwd"], worst_ln["fwd"], ln_times, "fwd"),
+        kernel_entry("fused_ln_bwd", "fused_ln_bwd.cu", "fused_ln.py:111",
+                     counts_ln["fused_ln"]["bwd"], worst_ln["bwd"], ln_times, "bwd"),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

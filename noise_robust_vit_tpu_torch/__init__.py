@@ -7,9 +7,11 @@ CPU tensors.
 """
 
 from .convert import convert_params
-from .models import CaiT, CvT, LeViT, MobileViT, SimpleViT, SwinTransformer, create_model
-from .ops import biased_attention, fused_attention, packed_attention, streaming_attention
+from .models import (CaiT, CvT, LeViT, MobileViT, SimpleViT, SwinTransformer, VisionTransformer,
+                     create_model)
+from .ops import (FusedLayerNorm, biased_attention, fused_attention, fused_layer_norm,
+                  packed_attention, streaming_attention)
 
-__all__ = ["CaiT", "CvT", "LeViT", "MobileViT", "SimpleViT", "SwinTransformer",
-           "biased_attention", "convert_params", "create_model", "fused_attention",
-           "packed_attention", "streaming_attention"]
+__all__ = ["CaiT", "CvT", "FusedLayerNorm", "LeViT", "MobileViT", "SimpleViT", "SwinTransformer",
+           "VisionTransformer", "biased_attention", "convert_params", "create_model",
+           "fused_attention", "fused_layer_norm", "packed_attention", "streaming_attention"]

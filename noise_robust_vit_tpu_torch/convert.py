@@ -20,7 +20,15 @@ Paths map by name, because the port's modules carry the flax names
   ``qkv_bias`` and ``logit_scale``, LeViT's ``attention_biases``, CaiT's
   LayerScale ``scale_attn_{i}`` / ``scale_ff_{i}``, its head mixes
   ``mix_heads_pre_attn`` / ``mix_heads_post_attn``, ``pos_embedding`` and
-  ``cls_token``).
+  ``cls_token``; the VisionTransformer's ``encoder/pos_embedding``
+  ``[1, N + 1, D]`` and ``class_token`` ``[1, 1, D]``).
+
+A ``FusedLayerNorm`` takes the same ``weight`` and ``bias`` as a LayerNorm.
+The VisionTransformer's tree maps whole: its patchify ``conv_proj`` or stem
+``conv_bn_relu_{i}_conv`` / ``conv_last`` kernels as Conv kernels, its stem
+``conv_bn_relu_{i}_bn`` scales and ``batch_stats``, and every Dense
+(``self_attention/to_qkv``, ``to_out``, ``mlp/fc1``, ``fc2``,
+``pre_logits``, ``head``).
 
 Only numpy is needed on the way in, so this imports where JAX is absent.
 """

@@ -7,6 +7,8 @@ from .levit import LeViT, fuse_levit_variables
 from .mobile_vit import MobileViT
 from .simple_vit import SimpleViT
 from .swin import SwinTransformer
+from .vision_transformer import ConvStemConfig, VisionTransformer, interpolate_embeddings
 
-__all__ = ["CaiT", "CvT", "LeViT", "MobileViT", "SimpleViT", "SwinTransformer", "create_model",
-           "fuse_levit_variables", "register_model"]
+__all__ = ["CaiT", "ConvStemConfig", "CvT", "LeViT", "MobileViT", "SimpleViT", "SwinTransformer",
+           "VisionTransformer", "create_model", "fuse_levit_variables", "interpolate_embeddings",
+           "register_model"]

@@ -1,7 +1,8 @@
 """Architecture registry: name → constructor (counterpart of
 ``noise_robust_vit_tpu/models/factory.py``; the port's entries so far are
-``simple_vit``, ``simple_vit_b16``, the Swin v1/v2 builders, the LeViT
-builders, with ``levit`` for LeViT-128S, ``cait`` and ``cvt_13``). Every entry accepts
+``simple_vit``, ``simple_vit_b16``, the Swin v1/v2 builders, the torchvision-style
+``vit_b_16/b_32/l_16/l_32/h_14``, the LeViT builders, with ``levit`` for
+LeViT-128S, ``cait``, ``cvt_13`` and ``mobile_vit_xs``). Every entry accepts
 ``(num_classes, image_size, robust, dtype, device)``.
 ``create_model`` builds on the card unless ``device`` names another (it
 raises when there is no card), draws the initial weights from a
@@ -16,7 +17,7 @@ from typing import Callable
 import torch
 
 from ..utils import resolve_device
-from . import levit, swin
+from . import levit, swin, vision_transformer
 from .cait import CaiT, _Transformer as _CaiTStage
 from .cvt import CvT
 from .layers import DropPath, init_params
@@ -86,6 +87,8 @@ def _simple_vit_b16(num_classes, image_size, robust, dtype, device=None, **kw):
 
 for _name in ("swin_t", "swin_s", "swin_b", "swin_v2_t", "swin_v2_s", "swin_v2_b"):
     register_model(_name)(getattr(swin, _name))
+for _name in ("vit_b_16", "vit_b_32", "vit_l_16", "vit_l_32", "vit_h_14"):
+    register_model(_name)(getattr(vision_transformer, _name))
 for _name in ("LeViT_128S", "LeViT_128", "LeViT_192", "LeViT_256", "LeViT_384"):
     register_model(_name)(getattr(levit, _name))
 register_model("levit")(levit.LeViT_128S)  # the fork's arch switch name

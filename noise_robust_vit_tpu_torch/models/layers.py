@@ -9,6 +9,7 @@ so that ``convert.convert_params`` maps one onto the other by name.
 
 from __future__ import annotations
 
+import os
 from typing import Callable
 
 import torch
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
+from ..ops.norms import FusedLayerNorm
 from ..utils import lecun_normal_init, zeros_init
 
 __all__ = ["Attention", "BatchNorm", "Conv", "Dense", "DropPath", "FeedForward",
@@ -54,6 +56,17 @@ class LayerNorm(nn.LayerNorm):
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
                          self.bias, self.eps)
         return y.to(self.compute_dtype)
+
+
+def _ln_cls() -> type[nn.Module]:
+    """LayerNorm class of the shared blocks (``FeedForward.norm``,
+    ``Attention.norm``, ``Transformer.norm``): ``FusedLayerNorm``, on the
+    fused LayerNorm kernels, when the environment variable ``NRV_FUSED_LN``
+    is set to anything non-empty, else ``LayerNorm``. The two have the same
+    parameters. The variable is read when a module is built (flax reads it
+    when the model is traced): set it before building a model, and a model
+    built keeps its class whatever the variable says later."""
+    return FusedLayerNorm if os.environ.get("NRV_FUSED_LN") else LayerNorm
 
 
 class BatchNorm(nn.Module):
@@ -108,7 +121,11 @@ class Conv(nn.Module):
     """flax ``nn.Conv`` (lecun-normal kernel unless ``kernel_init`` names
     another, zero bias) over NHWC images, with a stride and flax's explicit
     symmetric padding (an int ``padding`` pads every spatial side by it);
-    NHWC out. The weight is kept OIHW, as torch's convolutions keep it.
+    NHWC out. ``padding="SAME"`` is flax's default: the total padding of an
+    axis is max((out − 1)·stride + kernel − in, 0) with out = ⌈in / stride⌉,
+    its smaller half before and the rest after (so a 3×3 stride-2 conv over
+    an even side pads only after). The weight is kept OIHW, as torch's
+    convolutions keep it.
     Inside, the NHWC tensor is viewed as a channels-last NCHW one, so the
     layout changes cost no copy. ``groups`` is flax's
     ``feature_group_count`` (a depthwise conv when it equals the channels:
@@ -117,7 +134,7 @@ class Conv(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int | tuple[int, int], stride: int | tuple[int, int] = 1,
-                 padding: int = 0, dtype: torch.dtype = torch.float32, device=None,
+                 padding: int | str = 0, dtype: torch.dtype = torch.float32, device=None,
                  kernel_init: Callable | None = None, groups: int = 1, use_bias: bool = True):
         super().__init__()
         kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
@@ -137,11 +154,24 @@ class Conv(nn.Module):
         if self.bias is not None:
             self.bias.zero_()
 
+    def _same_pads(self, h: int, w: int) -> tuple[int, int, int, int]:
+        """``F.pad``'s (left, right, top, bottom) for SAME padding."""
+        pads = []
+        sh, sw = (self.stride, self.stride) if isinstance(self.stride, int) else self.stride
+        for size, k, st in ((w, self.weight.shape[3], sw), (h, self.weight.shape[2], sh)):
+            total = max((-(-size // st) - 1) * st + k - size, 0)
+            pads += [total // 2, total - total // 2]
+        return tuple(pads)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), bias,
-                     self.stride, self.padding, 1, self.groups)
+        x = x.to(dt).permute(0, 3, 1, 2)
+        padding = self.padding
+        if padding == "SAME":
+            x = F.pad(x, self._same_pads(x.shape[2], x.shape[3]))
+            padding = 0
+        y = F.conv2d(x, self.weight.to(dt), bias, self.stride, padding, 1, self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -169,7 +199,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, hidden_dim: int, act: Callable = ops.gelu,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.norm = LayerNorm(dim, eps=1e-5, dtype=dtype, device=device)
+        self.norm = _ln_cls()(dim, eps=1e-5, dtype=dtype, device=device)
         self.fc1 = Dense(dim, hidden_dim, dtype=dtype, device=device)
         self.fc2 = Dense(hidden_dim, dim, dtype=dtype, device=device)
         self.act = act
@@ -182,24 +212,28 @@ class Attention(nn.Module):
     """Pre-norm multi-head self-attention with optional Sinkhorn ("robust")
     normalization (ref simple_vit.py:48-76; robust branch :56-59). Shapes in
     the kernels' gate take the packed path (``ops.packed_attention``); the
-    rest split q/k/v and take ``ops.dot_product_attention``."""
+    rest split q/k/v and take ``ops.dot_product_attention``. ``pre_norm=False``
+    leaves out the LayerNorm (``norm``), for callers that normalize before
+    it (``vision_transformer.EncoderBlock``)."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  robust: bool = False, qkv_bias: bool = False,
                  out_bias: bool = False, sinkhorn_iters: int = 3,
-                 final_row_norm: bool = True,
+                 final_row_norm: bool = True, pre_norm: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.robust = robust
         self.sinkhorn_iters, self.final_row_norm = sinkhorn_iters, final_row_norm
-        self.norm = LayerNorm(dim, eps=1e-5, dtype=dtype, device=device)
+        self.norm = (_ln_cls()(dim, eps=1e-5, dtype=dtype, device=device) if pre_norm
+                     else None)
         self.to_qkv = Dense(dim, inner * 3, bias=qkv_bias, dtype=dtype, device=device)
         self.to_out = Dense(inner, dim, bias=out_bias, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        x = self.norm(x)
+        if self.norm is not None:
+            x = self.norm(x)
         b, n = x.shape[0], x.shape[1]
         qkv = self.to_qkv(x)
         kw = dict(scale=self.dim_head ** -0.5, robust=self.robust,
@@ -235,7 +269,7 @@ class Transformer(nn.Module):
                 qkv_bias=qkv_bias, out_bias=out_bias, dtype=dtype, device=device))
             self.add_module(f"layers_{i}_ff", FeedForward(
                 dim, mlp_dim, act=ff_act, dtype=dtype, device=device))
-        self.norm = (LayerNorm(dim, eps=1e-5, dtype=dtype, device=device)
+        self.norm = (_ln_cls()(dim, eps=1e-5, dtype=dtype, device=device)
                      if final_norm else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,9 @@ from .attention import (
     streaming_attention,
     streaming_dispatch,
 )
-from .posemb import posemb_sincos_2d
+from .cuda.fused_ln import fused_layer_norm
+from .norms import FusedLayerNorm
+from .posemb import posemb_sincos_2d, resize_posemb_grid
 from .regularizers import drop_path
 from .sinkhorn import (
     robust_softmax,
@@ -23,16 +25,19 @@ from .sinkhorn import (
 )
 
 __all__ = [
+    "FusedLayerNorm",
     "biased_attention",
     "biased_dispatch",
     "dot_product_attention",
     "drop_path",
     "fused_attention",
     "fused_dispatch",
+    "fused_layer_norm",
     "gelu",
     "packed_attention",
     "packed_dispatch",
     "posemb_sincos_2d",
+    "resize_posemb_grid",
     "robust_softmax",
     "sinkhorn_attention",
     "sinkhorn_normalize",

@@ -79,6 +79,12 @@ _ENTRIES = {
     # q, k, v, g, vecs, dq, dk, dv, dtype, K, N, D, DV, scale, robust, iters,
     # final_row, stream
     "nrv_fused_attention_bwd": ([_VP] * 8 + [_I] * 5 + [_F] + [_I] * 3 + [_VP]),
+    # x, g, b, y, dtype, R, D, eps, stream
+    "nrv_fused_ln_fwd": ([_VP] * 4 + [_I] * 3 + [_F, _VP]),
+    # x, g, dy, dx, dg_part, db_part, dg, db, dtype, R, D, eps, stream
+    "nrv_fused_ln_bwd": ([_VP] * 8 + [_I] * 3 + [_F, _VP]),
+    # R, D
+    "nrv_fused_ln_bwd_blocks": ([_I] * 2),
     "nrv_cuda_error_string": ([_I]),
 }
 

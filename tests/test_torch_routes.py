@@ -11,16 +11,24 @@ fused q/k/v path serves MobileViT's transformers and SimpleViT at head width
 16 (its ``plain_qkv`` case, which took the vector form before the fused
 kernels were ported), and no other site: every site of SimpleViT at head
 width 32, Swin, LeViT, CaiT and CvT keeps the op it had.
+
+The fused LayerNorm (``FusedLayerNormFn``) is spied on as well: it serves
+the shared blocks' norms of a SimpleViT built with ``NRV_FUSED_LN`` set (D
+128, inside its gate), and no site of any model built without it. The
+torchvision-style VisionTransformer's sites take the packed kernels, both
+modes, on its 4-iteration schedule with no final row norm.
 """
 
 import pytest
 import torch
 
-from noise_robust_vit_tpu_torch import CaiT, CvT, LeViT, MobileViT, SimpleViT, SwinTransformer
+from noise_robust_vit_tpu_torch import (CaiT, CvT, LeViT, MobileViT, SimpleViT, SwinTransformer,
+                                        VisionTransformer)
 from noise_robust_vit_tpu_torch.ops import attention as attention_ops
 from noise_robust_vit_tpu_torch.ops import sinkhorn as sinkhorn_ops
 from noise_robust_vit_tpu_torch.ops.cuda import biased_attention as ba
 from noise_robust_vit_tpu_torch.ops.cuda import fused_attention as fa
+from noise_robust_vit_tpu_torch.ops.cuda import fused_ln as fl
 from noise_robust_vit_tpu_torch.ops.cuda import packed_attention as pa
 from noise_robust_vit_tpu_torch.ops.cuda import sinkhorn_softmax as ss
 from noise_robust_vit_tpu_torch.ops.cuda import streaming_attention as sa
@@ -31,7 +39,7 @@ torch.set_num_threads(1)
 LEVIT_D, LEVIT_EMBED = 16, (32, 48, 64)
 # name → (class, keyword arguments, image size, the sites in call order);
 # the configs are those of tests/test_torch_{simple_vit,swin,levit,cait,cvt,
-# mobile_vit}.py
+# mobile_vit,vision_transformer,fused_ln}.py
 MODELS = {
     "simple_vit_d32": (SimpleViT, dict(image_size=32, patch_size=8, num_classes=10, dim=64,
                                        depth=2, heads=2, mlp_dim=128, dim_head=32), 32,
@@ -70,7 +78,18 @@ MODELS = {
                                    channels=(8, 8, 12, 16, 16, 24, 24, 24, 24, 32, 48),
                                    depths=(1, 1, 1)), 128,
                    [("fused", (8, 4, 64, 8)), ("fused", (8, 4, 16, 8)), ("fused", (8, 4, 4, 8))]),
+    "vit": (VisionTransformer, dict(image_size=32, patch_size=8, num_layers=2, num_heads=2,
+                                    hidden_dim=64, mlp_dim=128, num_classes=10), 32,
+            [("packed", (2, 17, 192))] * 2),
+    "simple_vit_fused_ln": (SimpleViT, dict(image_size=32, patch_size=8, num_classes=10, dim=128,
+                                            depth=2, heads=2, mlp_dim=128, dim_head=32), 32,
+                            [("fused_ln", (2, 16, 128)), ("packed", (2, 16, 192)),
+                             ("fused_ln", (2, 16, 128))] * 2),
 }
+# built with NRV_FUSED_LN set
+FUSED_LN_MODELS = {"simple_vit_fused_ln"}
+# ops that serve vanilla sites too
+BOTH_MODES = {"packed", "fused_ln"}
 
 
 @pytest.fixture
@@ -91,7 +110,7 @@ def sites(monkeypatch):
                          (sa.StreamingAttention, "streaming"), (ss.SinkhornSoftmax, "square"),
                          (ss.SinkhornSoftmaxRect, "rect"),
                          (th.TalkingHeadsSinkhorn, "talking_heads"),
-                         (fa.FusedAttention, "fused")):
+                         (fa.FusedAttention, "fused"), (fl.FusedLayerNormFn, "fused_ln")):
         spy(owner, "apply", label)
     spy(attention_ops, "sinkhorn_scalings", "vector_qkv")
     spy(sinkhorn_ops, "sinkhorn_normalize", "vector_logits")
@@ -99,14 +118,35 @@ def sites(monkeypatch):
 
 
 @pytest.mark.parametrize("name", list(MODELS))
-def test_robust_sites_keep_their_ops(name, sites):
+def test_robust_sites_keep_their_ops(name, sites, monkeypatch):
     """The robust sites in call order; vanilla ones reach no Sinkhorn op and
-    no kernel but the packed one, which serves both modes."""
+    no kernel but the packed one and the fused LayerNorm, which serve both
+    modes."""
     cls, kwargs, image, want = MODELS[name]
+    if name in FUSED_LN_MODELS:
+        monkeypatch.setenv("NRV_FUSED_LN", "1")
+    else:
+        monkeypatch.delenv("NRV_FUSED_LN", raising=False)
     torch.manual_seed(0)
     x = torch.randn(2, image, image, 3)
     cls(robust=False, device="cpu", **kwargs)(x)
-    assert sites == (want if name == "simple_vit_d32" else [])
+    assert sites == [s for s in want if s[0] in BOTH_MODES]
     sites.clear()
     cls(robust=True, device="cpu", **kwargs)(x)
     assert sites == want
+
+
+@pytest.mark.parametrize("robust", [False, True])
+def test_vit_sites_take_the_four_iteration_schedule(robust, monkeypatch):
+    """The VisionTransformer's packed calls run (4 iterations, no final row
+    norm), the vendored-MHA schedule, where SimpleViT's run (3, final)."""
+    schedules = []
+    real = pa.PackedAttention.apply
+    monkeypatch.setattr(pa.PackedAttention, "apply",
+                        lambda qkv, *a: schedules.append(a[3:]) or real(qkv, *a))
+    torch.manual_seed(0)
+    x = torch.randn(2, 32, 32, 3)
+    for name in ("vit", "simple_vit_d32"):
+        cls, kwargs, _, _ = MODELS[name]
+        cls(robust=robust, device="cpu", **kwargs)(x)
+    assert schedules == [(robust, 4, False)] * 2 + [(robust, 3, True)] * 2
