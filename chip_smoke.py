@@ -11,12 +11,18 @@ Phases, one line each (or a few):
   1. device   the card's name and power limit, as nvidia-smi reports them;
               exits non-zero without a CUDA device
   2. build    nvcc build of noise_robust_vit_tpu_torch/ops/cuda/csrc (one nvcc
-              a source, in parallel), seconds
-  3. kernels  packed kernels against their plain versions at [8, 196|197,
-              2304] (H=12, D=64), vanilla and three Sinkhorn schedules, at
+              a source, in parallel), seconds; the resident packed kernels'
+              registers, stack and spills from the build's -Xptxas -v report
+  3. kernels  the packed branch rule, Python's formula against the
+              library's at every N ≤ 1024 and D 32/64/128; packed kernels
+              against their plain versions at [8, 196|197, 2304] (H=12,
+              D=64), vanilla and three Sinkhorn schedules, at
               SimpleViT-B/16's [256, 196, 2304], vanilla and robust (3,
               final), and at vit_b_16's [256, 197, 2304] bf16, vanilla and
-              robust (4, no final row norm), with the bits of two runs;
+              robust (4, no final row norm), bf16 there on the resident
+              branch with the bits of two runs; the scratch branch in
+              float32 at those shapes, in bf16 forced at [8, 196, 2304] and
+              above the resident range at [8, 400, 2304], every mode;
               biased kernels against theirs at the four Swin-T stage shapes of
               a batch of 128 with their real window counts, swin_v2_t's N=64,
               LeViT's [256, 4, 196, 16] (DV 32), LeViT-256's stage 0
@@ -86,9 +92,15 @@ Phases, one line each (or a few):
               5 steps of SimpleViT-B/16 with the switch on (12 packed and 24
               fused-LN launches each way a step) and of vit_b_16 (12 packed
               each way a step on (4, no final row norm), 0 fused-LN); every
-              other model's steps count 0 fused-LN launches
+              other model's steps count 0 fused-LN launches; every
+              SimpleViT-B/16 and vit_b_16 step's 12 + 12 packed launches
+              are on the resident branch (0 scratch), and the small float32
+              models launch the scratch branch
   5. timing   kernels against plain versions at [256, 196, 2304] (packed,
-              and at vit_b_16's [256, 197, 2304] on (4, no final)),
+              and at vit_b_16's [256, 197, 2304] on (4, no final); both
+              modes, the resident and the scratch branch in turns in the
+              same call, and the resident ones must be faster; the scratch
+              branch alone in float32 at [256, 196, 2304], robust),
               [8192, 3, 49, 32], nW=64 (biased), with
               scaled_dot_product_attention as the vanilla yardstick, and
               [256, 8, 49, 196] (rect) and [128, 8, 197, 197] (square) f32
@@ -269,32 +281,47 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def phase_kernels(pa, torch, dev):
-    """Kernel against plain version: every mode at [8, 196|197, 2304], and
-    the main paths' shapes at batch 256, where the grid has fewer blocks than
-    heads and each block takes about 12 heads in turn, reusing its scratch
-    slot and shared vectors: SimpleViT-B/16's [256, 196, 2304] vanilla and
-    robust (3, final), vit_b_16's [256, 197, 2304] bf16 vanilla and robust
-    (4, no final row norm), the latter also run twice for the same bits.
-    Returns the largest bfloat16 errors (fwd out, bwd dqkv) at each main
-    path's shape, keyed by its N."""
-    worst = {n: {"fwd": 0.0, "bwd": 0.0} for n in (196, 197)}
+    """Kernel against plain version. The branch rule: Python's formula
+    against the library's (``nrv_packed_resident_fits``) at every N ≤ 1024
+    and D in (32, 64, 128). Every mode at [8, 196|197, 2304], and the main
+    paths' shapes at batch 256, where each persistent block takes many
+    heads in turn: SimpleViT-B/16's [256, 196, 2304] vanilla and robust (3,
+    final), vit_b_16's [256, 197, 2304] bf16 vanilla and robust (4, no final
+    row norm); bf16 at N ≤ RESIDENT_MAX_N takes the resident branch, and at
+    batch 256 each bf16 mode is also run twice for the same bits. The
+    scratch branch: float32 (as above), bf16 forced onto it at [8, 196,
+    2304], and bf16 above the resident range at [8, 400, 2304], every mode.
+    Returns the largest errors (fwd out, bwd dqkv): the resident branch's at
+    each main path's shape (bf16), keyed by its N, and under "scratch" the
+    scratch branch's in float32, the path the small float32 models take."""
+    from noise_robust_vit_tpu_torch.ops.cuda import build
+
+    lib = build.load_library()
+    wrong = [(n, d) for n in range(1, 1025) for d in (32, 64, 128)
+             if bool(lib.nrv_packed_resident_fits(n, d)) != pa._resident_fits(n, d)]
+    if wrong:
+        raise RuntimeError(f"packed branch rule: Python and csrc disagree at (N, D) {wrong[:8]}")
+    log(f"kernels: packed branch rule: Python and csrc agree at N 1..1024, D 32/64/128; "
+        f"resident for bf16, D 64, N <= {pa.RESIDENT_MAX_N}")
+    worst = {key: {"fwd": 0.0, "bwd": 0.0} for key in (196, 197, "scratch")}
     rng = np.random.default_rng(0)
     h, d = 12, 64
     f32, bf16 = torch.float32, torch.bfloat16
-    # (B, N, dtypes, modes)
-    groups = [(8, 196, (f32, bf16), MODES), (8, 197, (f32,), MODES),
-              (256, 196, (f32, bf16), MODES[:2]), (256, 197, (bf16,), [MODES[0], MODES[2]])]
-    for b, n, dtypes, modes in groups:
+    # (B, N, dtypes, modes, forced branch)
+    groups = [(8, 196, (f32, bf16), MODES, None), (8, 197, (f32,), MODES, None),
+              (8, 196, (bf16,), MODES, "scratch"), (8, 400, (bf16,), MODES, None),
+              (256, 196, (f32, bf16), MODES[:2], None),
+              (256, 197, (bf16,), [MODES[0], MODES[2]], None)]
+    for b, n, dtypes, modes, forced in groups:
         qkv32 = device_normal(torch, dev, rng, (b, n, 3 * h * d))
         g32 = device_normal(torch, dev, rng, (b, n, h * d))
-        kb = b * h
-        per_block = math.ceil(kb / pa._n_slots(dev, kb))
         for dtype in dtypes:
             qkv, g = qkv32.to(dtype), g32.to(dtype)
+            branch = forced or pa.packed_branch(n, d, dtype)
             for robust, iters, final_row in modes:
                 args = (h, d, d ** -0.5, robust, iters, final_row)
-                out_k, vecs_k = pa.packed_attention_fwd_cuda(qkv, *args)
-                dq_k = pa.packed_attention_bwd_cuda(qkv, g, vecs_k, *args)
+                out_k, vecs_k = pa.packed_attention_fwd_cuda(qkv, *args, branch=branch)
+                dq_k = pa.packed_attention_bwd_cuda(qkv, g, vecs_k, *args, branch=branch)
                 torch.cuda.synchronize()
                 out_p, vecs_p = pa.packed_attention_fwd_plain(qkv, *args)
                 dq_p = pa.packed_attention_bwd_plain(qkv, g, vecs_p, *args)
@@ -302,10 +329,9 @@ def phase_kernels(pa, torch, dev):
                 e_out = (out_k.float() - out_p.float()).abs().max().item()
                 e_vec = (vecs_k - vecs_p).abs().max().item()
                 e_dq = (dq_k.float() - dq_p.float()).abs().max().item()
-                log(f"kernels: {str(dtype).split('.')[1]} [{b},{n},{3 * h * d}] "
+                log(f"kernels: {str(dtype).split('.')[1]} [{b},{n},{3 * h * d}] {branch} "
                     f"robust={int(robust)} iters={iters} final_row={int(final_row)} "
-                    f"heads/block<={per_block} max_abs_err out={e_out:.3g} "
-                    f"vecs={e_vec:.3g} dqkv={e_dq:.3g}")
+                    f"max_abs_err out={e_out:.3g} vecs={e_vec:.3g} dqkv={e_dq:.3g}")
                 if dtype == f32:
                     torch.testing.assert_close(out_k, out_p, atol=1e-4, rtol=1e-3)
                     torch.testing.assert_close(vecs_k, vecs_p, atol=1e-4, rtol=1e-3)
@@ -314,18 +340,19 @@ def phase_kernels(pa, torch, dev):
                     torch.testing.assert_close(out_k.float(), out_p.float(), atol=2e-2, rtol=0)
                     torch.testing.assert_close(vecs_k, vecs_p, atol=1e-3, rtol=1e-3)
                     torch.testing.assert_close(dq_k.float(), dq_p.float(), atol=2e-2, rtol=2e-2)
-                    if b == 256:
-                        worst[n]["fwd"] = max(worst[n]["fwd"], e_out)
-                        worst[n]["bwd"] = max(worst[n]["bwd"], e_dq)
-                if (b, n) == (256, 197):
-                    out_2, vecs_2 = pa.packed_attention_fwd_cuda(qkv, *args)
-                    dq_2 = pa.packed_attention_bwd_cuda(qkv, g, vecs_2, *args)
+                key = "scratch" if dtype == f32 else n if b == 256 else None
+                if key is not None:
+                    worst[key]["fwd"] = max(worst[key]["fwd"], e_out)
+                    worst[key]["bwd"] = max(worst[key]["bwd"], e_dq)
+                if b == 256 and dtype == bf16:
+                    out_2, vecs_2 = pa.packed_attention_fwd_cuda(qkv, *args, branch=branch)
+                    dq_2 = pa.packed_attention_bwd_cuda(qkv, g, vecs_2, *args, branch=branch)
                     if not (torch.equal(out_2, out_k) and torch.equal(vecs_2, vecs_k)
                             and torch.equal(dq_2, dq_k)):
-                        raise RuntimeError(f"packed kernels [{b},{n}] robust={int(robust)}: "
-                                           "two runs differ")
-                    log(f"kernels: [{b},{n},{3 * h * d}] robust={int(robust)} iters={iters} "
-                        f"final_row={int(final_row)}: two runs give the same bits")
+                        raise RuntimeError(f"packed kernels [{b},{n}] {branch} "
+                                           f"robust={int(robust)}: two runs differ")
+                    log(f"kernels: [{b},{n},{3 * h * d}] {branch} robust={int(robust)} "
+                        f"iters={iters} final_row={int(final_row)}: two runs give the same bits")
                     del out_2, vecs_2, dq_2
                 del out_k, vecs_k, dq_k, out_p, vecs_p, dq_p
         del qkv32, g32, qkv, g
@@ -851,40 +878,65 @@ def phase_sinkhorn_times(ss, torch, dev):
 
 
 def phase_kernel_times(pa, torch, dev, b=256, n=196, h=12, d=64, iters=3, final_row=True,
-                       modes=(True, False)):
-    """Packed kernels at bf16 [b, n, 3·h·d] on the robust schedule (iters,
-    final_row) and vanilla, beside their plain versions and, vanilla, SDPA;
-    ``modes`` picks the robust flags timed."""
+                       dtype=None, robusts=(True, False)):
+    """Packed kernels at [b, n, 3·h·d] (bf16 unless `dtype`) on the robust
+    schedule (iters, final_row) and vanilla: where the shape takes the
+    resident branch, it and the scratch branch in turns (resident, scratch,
+    scratch, resident; the mean of each pair), else the scratch branch
+    twice, beside the plain versions and, vanilla, SDPA. Returns
+    times[robust][branch] with the plain, library and bound entries under
+    every branch."""
+    dtype = dtype or torch.bfloat16
     rng = np.random.default_rng(3)
-    qkv = device_normal(torch, dev, rng, (b, n, 3 * h * d)).to(torch.bfloat16)
-    g = device_normal(torch, dev, rng, (b, n, h * d)).to(torch.bfloat16)
+    qkv = device_normal(torch, dev, rng, (b, n, 3 * h * d)).to(dtype)
+    g = device_normal(torch, dev, rng, (b, n, h * d)).to(dtype)
+    both = pa.packed_branch(n, d, dtype) == "resident"
     times = {}
-    for robust in modes:
+    for robust in robusts:
         args = (h, d, d ** -0.5, robust, iters, final_row)
         _, vecs = pa.packed_attention_fwd_cuda(qkv, *args)
-        t = {
-            "fwd": cuda_ms(lambda: pa.packed_attention_fwd_cuda(qkv, *args), 10),
-            "fwd_plain": cuda_ms(lambda: pa.packed_attention_fwd_plain(qkv, *args), 10),
-            "bwd": cuda_ms(lambda: pa.packed_attention_bwd_cuda(qkv, g, vecs, *args), 10),
-            "bwd_plain": cuda_ms(lambda: pa.packed_attention_bwd_plain(qkv, g, vecs, *args), 10),
+        runs = {}
+        for branch in ("resident", "scratch", "scratch", "resident") if both else ("scratch",) * 2:
+            runs.setdefault(branch, []).append((
+                cuda_ms(lambda: pa.packed_attention_fwd_cuda(qkv, *args, branch=branch), 10),
+                cuda_ms(lambda: pa.packed_attention_bwd_cuda(qkv, g, vecs, *args,
+                                                             branch=branch), 10)))
+        common = {
+            "fwd_plain": cuda_ms(lambda: pa.packed_attention_fwd_plain(qkv, *args), 5),
+            "bwd_plain": cuda_ms(lambda: pa.packed_attention_bwd_plain(qkv, g, vecs, *args), 5),
+            "fwd_lib": None, "bwd_lib": None,
         }
-        t["fwd_lib"] = t["bwd_lib"] = None
         if not robust:
             q, k, v = qkv.reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4).contiguous()
-            t["fwd_lib"], t["bwd_lib"] = sdpa_ms(
+            common["fwd_lib"], common["bwd_lib"] = sdpa_ms(
                 torch, q, k, v, None, g.reshape(b, n, h, d).transpose(1, 2).contiguous())
             del q, k, v
-        qkv_b, out_b, vec_b = qkv.numel() * 2, g.numel() * 2, vecs.numel() * 4
-        (t["fwd_bound"], t["fwd_by"]), (t["bwd_bound"], t["bwd_by"]) = attention_work(
-            b * h, n, d, d, (qkv_b, qkv_b + out_b + vec_b), (out_b + vec_b, qkv_b),
-            robust, iters, final_row, 0)
-        times[robust] = t
-        lib = "" if robust else (f"; sdpa fwd {t['fwd_lib']:.4f} bwd {t['bwd_lib']:.4f}")
-        sched = f"({iters}, {'final' if final_row else 'no final'})" if robust else "vanilla"
-        log(f"timing: packed attention bf16 [{b},{n},{3 * h * d}] robust={int(robust)} "
-            f"{sched} ms: fwd {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, bound "
-            f"{t['fwd_bound']:.4f} {t['fwd_by']}) bwd {t['bwd']:.4f} (plain "
-            f"{t['bwd_plain']:.4f}, bound {t['bwd_bound']:.4f} {t['bwd_by']}){lib}")
+        qkv_b, out_b = qkv.numel() * qkv.element_size(), g.numel() * g.element_size()
+        vec_b = vecs.numel() * 4
+        (common["fwd_bound"], common["fwd_by"]), (common["bwd_bound"], common["bwd_by"]) = \
+            attention_work(b * h, n, d, d, (qkv_b, qkv_b + out_b + vec_b),
+                           (out_b + vec_b, qkv_b), robust, iters, final_row, 0)
+        times[robust] = {}
+        for branch, pairs in runs.items():
+            t = dict(common, fwd=statistics.mean(p[0] for p in pairs),
+                     bwd=statistics.mean(p[1] for p in pairs))
+            times[robust][branch] = t
+            lib = "" if robust else f"; sdpa fwd {t['fwd_lib']:.4f} bwd {t['bwd_lib']:.4f}"
+            sched = f"({iters}, {'final' if final_row else 'no final'})" if robust else "vanilla"
+            log(f"timing: packed attention {str(dtype).split('.')[1]} [{b},{n},{3 * h * d}] {branch} "
+                f"robust={int(robust)} {sched} ms: fwd {t['fwd']:.4f} "
+                f"{[round(p[0], 4) for p in pairs]} (plain {t['fwd_plain']:.4f}, bound "
+                f"{t['fwd_bound']:.4f} {t['fwd_by']}) bwd {t['bwd']:.4f} "
+                f"{[round(p[1], 4) for p in pairs]} (plain {t['bwd_plain']:.4f}, bound "
+                f"{t['bwd_bound']:.4f} {t['bwd_by']}){lib}")
+        if not both:
+            continue
+        new, old = times[robust]["resident"], times[robust]["scratch"]
+        log(f"timing: packed [{b},{n}] robust={int(robust)} resident/scratch time ratio "
+            f"fwd {new['fwd'] / old['fwd']:.4f} bwd {new['bwd'] / old['bwd']:.4f}")
+        if not (new["fwd"] < old["fwd"] and new["bwd"] < old["bwd"]):
+            raise RuntimeError(f"packed [{b},{n}] robust={int(robust)}: the resident kernels "
+                               "are not faster than the scratch kernels")
     del qkv, g
     torch.cuda.empty_cache()
     return times
@@ -1754,7 +1806,8 @@ def phase_vit_train(pa, fl, torch, dev, counts):
     pa.packed_attention_fwd_cuda = spy
     try:
         total = phase_train(counts, torch, dev, "vit_b_16",
-                            {r: {"packed": 12, "fused_ln": 0} for r in (True, False)})
+                            {r: {"packed": 12, "packed_resident": 12, "packed_scratch": 0,
+                                 "fused_ln": 0} for r in (True, False)})
     finally:
         pa.packed_attention_fwd_cuda = real
     if sorted(set(seen)) != [(False, 4, False), (True, 4, False)]:
@@ -1813,6 +1866,21 @@ def phase_ln_times(fl, torch, dev, shape=LN_MAIN):
     return t
 
 
+RESIDENT_SOURCES = ("packed_resident_fwd.cu", "packed_resident_bwd.cu")
+
+
+def ptxas_report(build, lib_path):
+    """The resident packed kernels' registers, shared memory and spills,
+    from the build's -Xptxas -v report."""
+    section = None
+    for line in build.ptxas_log(lib_path).read_text().splitlines():
+        if line.startswith("== "):
+            section = line[3:]
+        elif section in RESIDENT_SOURCES and any(
+                w in line for w in ("registers", "spill", "stack frame")):
+            log(f"build: ptxas {section}: {line.strip()}")
+
+
 def kernel_entry(name, src, replaces, launches, err, t, direction):
     """One row of the {"kernels": [...]} line: the times ``t`` of the robust
     schedule the row's path runs."""
@@ -1853,6 +1921,7 @@ def main() -> int:
     lib_path = build.build()
     build.load_library()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
+    ptxas_report(build, lib_path)
     lap("build")
 
     worst = phase_kernels(pa, torch, dev)
@@ -1870,6 +1939,8 @@ def main() -> int:
     worst_ln = phase_ln_kernels(fl, torch, dev)
     torch.cuda.synchronize()
     lap("fused LayerNorm kernel checks")
+    # the small float32 models take the scratch branch of the packed kernels
+    pa.launches_scratch.reset()
     phase_small_model(torch, dev)
     phase_small_swin(ba, torch, dev)
     phase_small_levit(ba, ss, torch, dev)
@@ -1879,21 +1950,30 @@ def main() -> int:
     phase_small_fused_ln_model(fl, pa, torch, dev)
     phase_small_vit(pa, fl, torch, dev)
     torch.cuda.synchronize()
+    scratch_launches = {"fwd": pa.launches_scratch.fwd, "bwd": pa.launches_scratch.bwd}
+    log(f"slice: the small float32 models launched the scratch packed kernels "
+        f"{scratch_launches['fwd']}/{scratch_launches['bwd']} times")
+    if not (scratch_launches["fwd"] and scratch_launches["bwd"]):
+        raise RuntimeError("the small models did not launch the scratch packed kernels")
     lap("small models card vs cpu")
     # the fused q/k/v kernels serve MobileViT's transformers and no site of
     # the earlier models: their paths count 0 fused launches; the fused
     # LayerNorm serves only models built with NRV_FUSED_LN=1
-    counts = phase_train({"packed": pa.launches, "fused": fa.launches, "fused_ln": fl.launches},
+    # every SimpleViT-B/16 and vit_b_16 step runs its 12 + 12 packed
+    # launches on the resident branch
+    packed = {"packed": pa.launches, "packed_resident": pa.launches_resident,
+              "packed_scratch": pa.launches_scratch}
+    on_resident = {"packed": 12, "packed_resident": 12, "packed_scratch": 0}
+    counts = phase_train({**packed, "fused": fa.launches, "fused_ln": fl.launches},
                          torch, dev, "simple_vit_b16",
-                         {r: {"packed": 12, "fused": 0, "fused_ln": 0}
-                          for r in (True, False)})["packed"]
+                         {r: {**on_resident, "fused": 0, "fused_ln": 0}
+                          for r in (True, False)})["packed_resident"]
     with fused_ln_switch():
-        counts_ln = phase_train({"packed": pa.launches, "fused_ln": fl.launches}, torch, dev,
+        counts_ln = phase_train({**packed, "fused_ln": fl.launches}, torch, dev,
                                 "simple_vit_b16",
-                                {r: {"packed": 12, "fused_ln": 24} for r in (True, False)})
+                                {r: {**on_resident, "fused_ln": 24} for r in (True, False)})
     log("slice: simple_vit_b16 above with NRV_FUSED_LN=1")
-    counts_v = phase_vit_train(pa, fl, torch, dev, {"packed": pa.launches,
-                                                    "fused_ln": fl.launches})
+    counts_v = phase_vit_train(pa, fl, torch, dev, {**packed, "fused_ln": fl.launches})
     counts_b = phase_train({"biased": ba.launches, "fused": fa.launches, "fused_ln": fl.launches},
                            torch, dev, "swin_t",
                            {True: {"biased": 12, "fused": 0, "fused_ln": 0},
@@ -1932,8 +2012,9 @@ def main() -> int:
     torch.cuda.synchronize()
     lap("train phases")
     ktimes = phase_kernel_times(pa, torch, dev)
-    ktimes_v = phase_kernel_times(pa, torch, dev, n=197, iters=4, final_row=False,
-                                  modes=(True,))
+    ktimes_v = phase_kernel_times(pa, torch, dev, n=197, iters=4, final_row=False)
+    # the scratch kernels' own row: float32, the dtype that takes them
+    ktimes_f32 = phase_kernel_times(pa, torch, dev, dtype=torch.float32, robusts=(True,))
     lap("packed timing")
     btimes = phase_biased_times(ba, torch, dev)
     phase_biased_levit_times(ba, torch, dev)
@@ -2003,20 +2084,31 @@ def main() -> int:
     phase_profile(torch, dev, "mobile_vit_xs", 128, image=256)
     lap("step times and profiles")
 
-    # the packed kernels serve two main paths, each with its own row:
-    # SimpleViT-B/16 at N 196 on (3, final) and vit_b_16 at N 197 on (4, no
-    # final row norm)
+    # the packed kernels' rows, each named by the path its numbers come
+    # from: the resident kernels serve SimpleViT-B/16 (N 196, (3, final))
+    # and vit_b_16 (N 197, (4, no final row norm)); the scratch kernels
+    # serve the float32 models, and their row takes its launches from the
+    # small float32 models, its error from the float32 checks and its time
+    # from float32 [256, 196, 2304] on (3, final)
     kernels = [
-        kernel_entry("packed_attention_fwd", "packed_attention_fwd.cu", "block_attention.py:234",
-                     counts["fwd"], worst[196]["fwd"], ktimes[True], "fwd"),
-        kernel_entry("packed_attention_bwd", "packed_attention_bwd.cu", "block_attention.py:284",
-                     counts["bwd"], worst[196]["bwd"], ktimes[True], "bwd"),
-        kernel_entry("packed_attention_fwd vit_b_16", "packed_attention_fwd.cu",
-                     "block_attention.py:234", counts_v["packed"]["fwd"], worst[197]["fwd"],
-                     ktimes_v[True], "fwd"),
-        kernel_entry("packed_attention_bwd vit_b_16", "packed_attention_bwd.cu",
-                     "block_attention.py:284", counts_v["packed"]["bwd"], worst[197]["bwd"],
-                     ktimes_v[True], "bwd"),
+        kernel_entry("packed_attention_fwd float32", "packed_attention_fwd.cu",
+                     "block_attention.py:234", scratch_launches["fwd"], worst["scratch"]["fwd"],
+                     ktimes_f32[True]["scratch"], "fwd"),
+        kernel_entry("packed_attention_bwd float32", "packed_attention_bwd.cu",
+                     "block_attention.py:284", scratch_launches["bwd"], worst["scratch"]["bwd"],
+                     ktimes_f32[True]["scratch"], "bwd"),
+        kernel_entry("packed_resident_fwd simple_vit_b16", "packed_resident_fwd.cu",
+                     "block_attention.py:234", counts["fwd"], worst[196]["fwd"],
+                     ktimes[True]["resident"], "fwd"),
+        kernel_entry("packed_resident_bwd simple_vit_b16", "packed_resident_bwd.cu",
+                     "block_attention.py:284", counts["bwd"], worst[196]["bwd"],
+                     ktimes[True]["resident"], "bwd"),
+        kernel_entry("packed_resident_fwd vit_b_16", "packed_resident_fwd.cu",
+                     "block_attention.py:234", counts_v["packed_resident"]["fwd"],
+                     worst[197]["fwd"], ktimes_v[True]["resident"], "fwd"),
+        kernel_entry("packed_resident_bwd vit_b_16", "packed_resident_bwd.cu",
+                     "block_attention.py:284", counts_v["packed_resident"]["bwd"],
+                     worst[197]["bwd"], ktimes_v[True]["resident"], "bwd"),
         kernel_entry("biased_attention_fwd", "biased_attention_fwd.cu", "biased_attention.py:230",
                      counts_b["fwd"], worst_b["fwd"], btimes[True], "fwd"),
         kernel_entry("biased_attention_bwd", "biased_attention_bwd.cu", "biased_attention.py:296",

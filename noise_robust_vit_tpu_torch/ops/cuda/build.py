@@ -3,7 +3,9 @@ interface, and load it with ctypes.
 
 ``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) at first use,
 into ``build/kernels/`` at the root of the checkout: one ``nvcc -c`` for each
-source, all started together, then one link. The library's name carries a
+source, all started together, then one link. Each source is compiled with
+``-Xptxas -v``, and its report (registers, shared memory, spills) goes to a
+text file beside the library (``ptxas_log``). The library's name carries a
 hash of the sources and flags, so an edited source is rebuilt and a stale
 library is never loaded. The build writes to temporary names and renames the
 library into place, so concurrent processes never load a half-written file.
@@ -25,11 +27,11 @@ if TYPE_CHECKING:
     import torch
 
 __all__ = ["LaunchCounts", "build", "build_dir", "by_device", "check_operand", "error_string",
-           "load_library", "open_library", "ptr", "raise_on", "sources", "stream"]
+           "load_library", "open_library", "ptr", "ptxas_log", "raise_on", "sources", "stream"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: (name, argtypes); each returns cudaGetLastError()
@@ -42,6 +44,14 @@ _ENTRIES = {
         # qkv, dout, vecs, dqkv, scratch, dtype, B, N, H, D, scale, robust,
         # iters, final_row, n_slots, stream
         [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _VP]),
+    # qkv, out, vecs, B, N, H, D, scale, robust, iters, final_row, grid,
+    # stream
+    "nrv_packed_resident_fwd": ([_VP] * 3 + [_I] * 4 + [_F] + [_I] * 4 + [_VP]),
+    # qkv, dout, vecs, dqkv, terms, B, N, H, D, scale, robust, iters,
+    # final_row, grid, stream
+    "nrv_packed_resident_bwd": ([_VP] * 5 + [_I] * 4 + [_F] + [_I] * 4 + [_VP]),
+    # N, D
+    "nrv_packed_resident_fits": ([_I] * 2),
     "nrv_biased_attention_fwd": (
         # q, k, v, bias, out, vecs, dtype, BW, H, N, D, DV, nW, scale, robust,
         # iters, final_row, stream
@@ -138,11 +148,14 @@ def build(csrc: Path = CSRC, out_dir: Path | None = None) -> Path:
                                                 stderr=subprocess.PIPE, text=True)))
     objs = [obj for _, obj, _ in jobs]
     try:
+        report = []
         for cmd, _, proc in jobs:
             stdout, stderr = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                                    f"{stdout}\n{stderr}")
+            report.append(f"== {Path(cmd[-1]).name}\n{stdout}{stderr}")
+        ptxas_log(out).write_text("".join(report))
         cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -157,6 +170,12 @@ def build(csrc: Path = CSRC, out_dir: Path | None = None) -> Path:
             obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out
+
+
+def ptxas_log(library: Path) -> Path:
+    """The ``-Xptxas -v`` report of the build of ``library``: a section a
+    source, each headed by ``== <file name>``."""
+    return library.with_suffix(".ptxas.txt")
 
 
 def open_library(path: Path) -> ctypes.CDLL:

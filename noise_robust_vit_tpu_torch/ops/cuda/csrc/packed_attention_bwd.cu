@@ -1,7 +1,8 @@
-// Packed-qkv attention, backward: the hand-derived gradient of the forward
-// in packed_attention_fwd.cu, from the stored residual rows, written straight
-// into a packed [B, N, 3·H·D] gradient (dq | dk | dv chunks, the layout the
-// to_qkv backward consumes).
+// Packed-qkv attention, backward, scratch branch: the hand-derived gradient
+// of the forward in packed_attention_fwd.cu, from the stored residual rows,
+// written straight into a packed [B, N, 3·H·D] gradient (dq | dk | dv
+// chunks, the layout the to_qkv backward consumes). It takes the shapes
+// the resident kernels (packed_resident_bwd.cu) do not, as the forward.
 //
 // Replaces the TPU kernel noise_robust_vit_tpu/ops/pallas/block_attention.py
 // ::_packed_bwd_impl (pl.pallas_call at :284), whose body is
@@ -22,7 +23,8 @@
 // What bounds it on the card: as the forward (packed_attention_fwd.cu), the
 // products (six per head, five when vanilla; q·kᵀ and G·Vᵀ as bf16 MMAs in
 // a bf16 model, the rest 3xTF32) by moving their tiles, and the chain's
-// 2·iters passes over attn by device-memory bandwidth.
+// 2·iters passes over attn by device-memory bandwidth. The latter holds on
+// this branch only: the resident kernels keep attn in shared memory.
 #include "sinkhorn_chain.cuh"
 
 namespace nrv {

@@ -1,6 +1,10 @@
-// Packed-qkv attention, forward: softmax, or softmax + Sinkhorn in
-// scaling-vector form, read in place from the [B, N, 3·H·D] output of
-// to_qkv and written as the [B, N, H·D] input of to_out.
+// Packed-qkv attention, forward, scratch branch: softmax, or softmax +
+// Sinkhorn in scaling-vector form, read in place from the [B, N, 3·H·D]
+// output of to_qkv and written as the [B, N, H·D] input of to_out. It
+// takes the shapes the resident kernels (packed_resident_fwd.cu: bf16,
+// D = 64, N ≤ 198, the N×N matrix in shared memory) do not: float32, N
+// above their range, D = 32 or 128 (ops/cuda/packed_attention.py::
+// packed_branch).
 //
 // Replaces the TPU kernel noise_robust_vit_tpu/ops/pallas/block_attention.py
 // ::_packed_fwd_impl (pl.pallas_call at :234), whose body is
@@ -28,8 +32,8 @@
 // shared memory.
 // Softmax and the chain are passes over the N×N slot, bound by device-memory
 // bandwidth because the slots of the blocks in flight (2 per SM) do not stay
-// in L2. A shared-memory resident matrix and wgmma/TMA tiles are the next
-// steps.
+// in L2. That holds on this branch only: the resident kernels keep the
+// matrix in shared memory and take their tiles by TMA into wgmma.
 #include "sinkhorn_chain.cuh"
 
 namespace nrv {

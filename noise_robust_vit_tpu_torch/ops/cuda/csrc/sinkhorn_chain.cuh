@@ -293,11 +293,13 @@ __device__ void block_gemm(int M, int N, int K, LoadA load_a, LoadB load_b,
 }
 
 // The nr×nc matrices below are float32 with row stride ld, in shared or
-// global memory. At N ≈ 200 the packed kernels' passes over a global
-// scratch are bound by device-memory bandwidth: the scratch slots of the
-// blocks in flight do not stay in L2. Streaming a row (one warp) or all
-// columns of a row (the whole block) at a time reads the matrix in order,
-// and measured fastest among the orders tried (PERF.md).
+// global memory. On the packed kernels' scratch branch (the shapes the
+// resident kernels, packed_resident_{fwd,bwd}.cu, do not take: float32,
+// N above their range, D ≠ 64) the passes over a global scratch are bound
+// by device-memory bandwidth, as the scratch slots of the blocks in
+// flight do not stay in L2. Streaming a row (one warp) or all columns of
+// a row (the whole block) at a time reads the matrix in order, and
+// measured fastest among the orders tried (PERF.md).
 constexpr int kCols = 8;
 constexpr int kColBlock = 32 * kCols;  // columns one pass of a warp covers
 

@@ -14,11 +14,21 @@ Three pieces live here:
   card's checks compare the kernels against them;
 * the ctypes wrappers ``packed_attention_fwd_cuda`` / ``_bwd_cuda``, which
   check what the kernels take, allocate outputs and scratch, launch on the
-  current stream and count their launches in ``launches``;
+  current stream and count their launches in ``launches`` (and by branch
+  in ``launches_resident`` / ``launches_scratch``);
 * ``PackedAttention``, the ``torch.autograd.Function`` tying the two
   directions together.
 
 The residual stack is ``[B, H, R, N]`` float32, rows as in ``plain.py``.
+
+Two branches of kernels compute the function, chosen by shape and dtype
+before the call (``packed_branch``): the resident kernels
+(``csrc/packed_resident_{fwd,bwd}.cu``: bf16, D = 64, N up to
+``RESIDENT_MAX_N``; the item's N×N matrix in shared memory, TMA operand
+tiles, every product on wgmma), and the scratch kernels
+(``csrc/packed_attention_{fwd,bwd}.cu``: every other shape the gate takes,
+float32 included; the matrices in a device-memory slot). A CUDA tensor goes
+to one of them or raises.
 """
 
 from __future__ import annotations
@@ -32,8 +42,12 @@ from .plain import attention_bwd_plain, attention_fwd_plain, num_vecs
 
 __all__ = [
     "PackedAttention",
+    "RESIDENT_MAX_N",
     "launches",
+    "launches_resident",
+    "launches_scratch",
     "num_vecs",
+    "packed_branch",
     "packed_attention_bwd",
     "packed_attention_bwd_cuda",
     "packed_attention_bwd_plain",
@@ -46,19 +60,80 @@ __all__ = [
 # Gate. Head widths the kernels are checked at; the GEMM tiles take any
 # width, so this is a list of verified cases, not a hardware limit.
 SUPPORTED_DIM_HEADS = (32, 64, 128)
-# The N×N matrices live in a global-memory scratch; what bounds N is the
-# shared-memory vector workspace of the backward (see csrc/sinkhorn_chain.cuh).
+# On the scratch branch the N×N matrices live in a global-memory scratch and
+# what bounds N is the shared-memory vector workspace of the backward (see
+# csrc/sinkhorn_chain.cuh).
 MAX_N = 1024
 MAX_ITERS = 8
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# blocks per SM, as the kernels' __launch_bounds__ allow; each owns one
-# scratch slot of N×N floats (on an H100 at N=196: 2 × 132 × 154 KB, 41 MB;
-# 1, 2, 3, 4, 8 and 24 slots per SM were timed, and 2 or more tie)
+# blocks per SM of the scratch kernels, as their __launch_bounds__ allow;
+# each owns one scratch slot of N×N floats (on an H100 at N=196: 2 × 132 ×
+# 154 KB, 41 MB; 1, 2, 3, 4, 8 and 24 slots per SM were timed, and 2 or
+# more tie)
 _BLOCKS_PER_SM = 2
 
 
+# The resident branch (csrc/packed_resident.cuh, mirrored here: change one,
+# change the other). Operand buffers of 208 rows × 64 bf16 columns (128
+# bytes a row, the 128-byte swizzle), q row tiles of 64 rows, the matrix
+# with row stride _resident_ld, the kernels' vectors; all within what a
+# block may use on sm_90.
+_RES_D = 64
+_RES_NCOLS = 200  # the wgmma n of the S and G·Vᵀ tiles: N's cap before the budget
+_RES_OP_BYTES = 208 * 128
+_RES_TILE_BYTES = 64 * 128
+_RES_ALIGN = 1024
+_RES_STATIC = 256
+_RES_WARPS = 8
+_SMEM_LIMIT = 232448
+
 launches = LaunchCounts()
+launches_resident = LaunchCounts()
+launches_scratch = LaunchCounts()
+
+
+def _resident_ld(n: int) -> int:
+    """Row stride of the resident matrix (``resident_ld`` in csrc): N
+    rounded up to 8, then to ≡ 8 (mod 32)."""
+    ld = (n + 7) // 8 * 8
+    while ld % 32 != 8:
+        ld += 8
+    return ld
+
+
+def _resident_fwd_smem(n: int) -> int:
+    """``fwd_smem_bytes`` in csrc: dynamic shared memory of the forward."""
+    return (_RES_ALIGN + 2 * _RES_OP_BYTES + 2 * _RES_TILE_BYTES
+            + 4 * (n * _resident_ld(n) + 3 * n))
+
+
+def _resident_bwd_smem(n: int) -> int:
+    """``bwd_smem_bytes`` in csrc: dynamic shared memory of the backward."""
+    return (_RES_ALIGN + 2 * _RES_OP_BYTES
+            + 4 * (n * _resident_ld(n) + (5 + _RES_WARPS) * n + _RES_WARPS + 1))
+
+
+def _resident_fits(n: int, dim_head: int) -> bool:
+    """``resident_fits`` in csrc: the shapes the resident kernels take."""
+    return (dim_head == _RES_D and 1 <= n <= _RES_NCOLS
+            and _resident_fwd_smem(n) + _RES_STATIC <= _SMEM_LIMIT
+            and _resident_bwd_smem(n) + _RES_STATIC <= _SMEM_LIMIT)
+
+
+RESIDENT_MAX_N = max(n for n in range(1, _RES_NCOLS + 1) if _resident_fits(n, _RES_D))
+
+
+def _bwd_terms_floats(n: int, iters: int) -> int:
+    """``bwd_terms_floats`` in csrc: the backward's per-block vector slot."""
+    return 2 * iters * n
+
+
+def packed_branch(n: int, dim_head: int, dtype: torch.dtype) -> str:
+    """The kernels a CUDA call of this shape and dtype goes to: "resident"
+    (bf16 where ``_resident_fits``) or "scratch" (every other shape the gate
+    takes)."""
+    return "resident" if dtype == torch.bfloat16 and _resident_fits(n, dim_head) else "scratch"
 
 
 def packed_attention_supported(n: int, dim_head: int, heads: int, batch: int,
@@ -141,40 +216,69 @@ def _n_slots(device: torch.device, kb: int) -> int:
     return max(1, min(kb, sms * _BLOCKS_PER_SM))
 
 
+def _branch_of(qkv, heads, dim_head, iters, branch):
+    """Check ``qkv`` against the gate and return its branch: ``branch`` when
+    given (a shape that branch cannot take raises), else ``packed_branch``."""
+    _check_qkv(qkv, heads, dim_head, iters)
+    n = qkv.shape[1]
+    rule = packed_branch(n, dim_head, qkv.dtype)
+    chosen = branch or rule
+    if chosen not in ("resident", "scratch"):
+        raise ValueError(f"packed attention kernel: no branch {chosen!r}")
+    if chosen == "resident" and rule != "resident":
+        raise ValueError(f"packed attention kernel: the resident branch does not take "
+                         f"N={n} D={dim_head} {qkv.dtype}")
+    return chosen
+
+
+def _grid(device: torch.device, kb: int) -> int:
+    """Persistent blocks of the resident kernels: one an SM."""
+    return max(1, min(kb, torch.cuda.get_device_properties(device).multi_processor_count))
+
+
 def packed_attention_fwd_cuda(qkv, heads, dim_head, scale, robust=False,
-                              iters=3, final_row=True):
-    """Launch the forward kernel; returns ``(out, vecs)`` like the plain
-    version. Raises on anything the kernel does not take."""
+                              iters=3, final_row=True, branch=None):
+    """Launch the forward kernel of the branch ``packed_branch`` picks (or
+    ``branch``); returns ``(out, vecs)`` like the plain version. Raises on
+    anything the kernel does not take."""
     from .build import load_library
 
-    _check_qkv(qkv, heads, dim_head, iters)
+    chosen = _branch_of(qkv, heads, dim_head, iters, branch)
     b, n, _ = qkv.shape
     kb = b * heads
     out = torch.empty(b, n, heads * dim_head, dtype=qkv.dtype, device=qkv.device)
     vecs = torch.empty(b, heads, num_vecs(iters, final_row, robust), n,
                        dtype=torch.float32, device=qkv.device)
-    slots = _n_slots(qkv.device, kb)
-    scratch = torch.empty(slots, n * _padded_ld(n), dtype=torch.float32,
-                          device=qkv.device)
     lib = load_library()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.nrv_packed_attention_fwd(
-            ptr(qkv), ptr(out), ptr(vecs), ptr(scratch),
-            _DTYPE_CODES[qkv.dtype], b, n, heads, dim_head, float(scale),
-            int(robust), int(iters), int(final_row), slots,
-            ctypes.c_void_p(stream))
-    raise_on(err, "packed attention forward kernel")
+        if chosen == "resident":
+            err = lib.nrv_packed_resident_fwd(
+                ptr(qkv), ptr(out), ptr(vecs), b, n, heads, dim_head, float(scale),
+                int(robust), int(iters), int(final_row), _grid(qkv.device, kb),
+                ctypes.c_void_p(stream))
+        else:
+            slots = _n_slots(qkv.device, kb)
+            scratch = torch.empty(slots, n * _padded_ld(n), dtype=torch.float32,
+                                  device=qkv.device)
+            err = lib.nrv_packed_attention_fwd(
+                ptr(qkv), ptr(out), ptr(vecs), ptr(scratch),
+                _DTYPE_CODES[qkv.dtype], b, n, heads, dim_head, float(scale),
+                int(robust), int(iters), int(final_row), slots,
+                ctypes.c_void_p(stream))
+    raise_on(err, f"packed attention forward kernel ({chosen})")
     launches.fwd += 1
+    (launches_resident if chosen == "resident" else launches_scratch).fwd += 1
     return out, vecs
 
 
 def packed_attention_bwd_cuda(qkv, dout, vecs, heads, dim_head, scale,
-                              robust=False, iters=3, final_row=True):
-    """Launch the backward kernel; returns ``dqkv`` like the plain version."""
+                              robust=False, iters=3, final_row=True, branch=None):
+    """Launch the backward kernel of the branch, as the forward; returns
+    ``dqkv`` like the plain version."""
     from .build import load_library
 
-    _check_qkv(qkv, heads, dim_head, iters)
+    chosen = _branch_of(qkv, heads, dim_head, iters, branch)
     b, n, _ = qkv.shape
     kb = b * heads
     if (dout.device != qkv.device or dout.dtype != qkv.dtype
@@ -189,19 +293,29 @@ def packed_attention_bwd_cuda(qkv, dout, vecs, heads, dim_head, scale,
         raise ValueError("packed attention kernel: vecs must be a contiguous "
                          f"float32 [{b}, {heads}, {r}, {n}] tensor")
     dqkv = torch.empty_like(qkv)
-    slots = _n_slots(qkv.device, kb)
-    scratch = torch.empty(slots, 2 * n * _padded_ld(n) + 2 * n * dim_head,
-                          dtype=torch.float32, device=qkv.device)
     lib = load_library()
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.nrv_packed_attention_bwd(
-            ptr(qkv), ptr(dout), ptr(vecs), ptr(dqkv), ptr(scratch),
-            _DTYPE_CODES[qkv.dtype], b, n, heads, dim_head, float(scale),
-            int(robust), int(iters), int(final_row), slots,
-            ctypes.c_void_p(stream))
-    raise_on(err, "packed attention backward kernel")
+        if chosen == "resident":
+            grid = _grid(qkv.device, kb)
+            terms = torch.empty(grid, _bwd_terms_floats(n, iters), dtype=torch.float32,
+                                device=qkv.device)
+            err = lib.nrv_packed_resident_bwd(
+                ptr(qkv), ptr(dout), ptr(vecs), ptr(dqkv), ptr(terms), b, n, heads,
+                dim_head, float(scale), int(robust), int(iters), int(final_row), grid,
+                ctypes.c_void_p(stream))
+        else:
+            slots = _n_slots(qkv.device, kb)
+            scratch = torch.empty(slots, 2 * n * _padded_ld(n) + 2 * n * dim_head,
+                                  dtype=torch.float32, device=qkv.device)
+            err = lib.nrv_packed_attention_bwd(
+                ptr(qkv), ptr(dout), ptr(vecs), ptr(dqkv), ptr(scratch),
+                _DTYPE_CODES[qkv.dtype], b, n, heads, dim_head, float(scale),
+                int(robust), int(iters), int(final_row), slots,
+                ctypes.c_void_p(stream))
+    raise_on(err, f"packed attention backward kernel ({chosen})")
     launches.bwd += 1
+    (launches_resident if chosen == "resident" else launches_scratch).bwd += 1
     return dqkv
 
 

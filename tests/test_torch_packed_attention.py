@@ -6,8 +6,9 @@ mode, as ``tests/test_block_attention.py`` does. Both get the same numpy
 inputs. Tolerances are the JAX suite's own, in float32: forward atol 2e-6 /
 rtol 2e-5, gradients atol 5e-6 / rtol 5e-5.
 
-The ``gpu`` cases compare the CUDA kernels with the plain versions on the
-card and skip where there is none. JAX is imported only by the tests that
+The branch rule (resident or scratch kernels) is checked here on shapes
+alone. The ``gpu`` cases compare the CUDA kernels of both branches with the
+plain versions on the card and skip where there is none. JAX is imported only by the tests that
 compare with it, so the file also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_packed_attention.py -m gpu
@@ -118,6 +119,46 @@ def test_gate(n, d, ok):
     assert packed_dispatch(n, d, 12, 256) is ok
 
 
+SCHEDULES = [(iters, final) for iters in range(1, pa.MAX_ITERS + 1) for final in (True, False)]
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES, ids=lambda s: f"{s[0]}-{int(s[1])}")
+@pytest.mark.parametrize("n", [196, 197])
+def test_branch_resident_on_main_paths(n, schedule):
+    """bf16 at SimpleViT-B/16's and vit_b_16's N with D 64 takes the resident
+    kernels, whatever the schedule (their shared memory does not depend on
+    it: the chain's rank-1 factors sit in a per-block device slot)."""
+    iters, final_row = schedule
+    assert pa.packed_attention_supported(n, 64, 12, 256, iters)
+    assert pa.packed_branch(n, 64, torch.bfloat16) == "resident"
+
+
+@pytest.mark.parametrize("n,d,dtype", [
+    (pa.RESIDENT_MAX_N + 1, 64, torch.bfloat16), (400, 64, torch.bfloat16),
+    (pa.MAX_N, 64, torch.bfloat16), (196, 64, torch.float32), (197, 64, torch.float32),
+    (196, 32, torch.bfloat16), (196, 128, torch.bfloat16)], ids=str)
+def test_branch_scratch_elsewhere(n, d, dtype):
+    assert pa.packed_branch(n, d, dtype) == "scratch"
+
+
+def test_resident_range():
+    """The resident range is contiguous from N = 1 and covers the main paths."""
+    assert pa.RESIDENT_MAX_N >= 197
+    assert all(pa._resident_fits(n, 64) for n in range(1, pa.RESIDENT_MAX_N + 1))
+    assert not any(pa._resident_fits(n, 64) for n in range(pa.RESIDENT_MAX_N + 1, 1025))
+
+
+def test_resident_smem_within_limit():
+    """Wherever the rule says resident, both kernels' shared memory (the
+    formula mirrored from csrc, with the static part kept) fits a block on
+    sm_90, and the matrix's row stride is the conflict-free one."""
+    for n in range(1, pa.RESIDENT_MAX_N + 1):
+        assert pa._resident_fwd_smem(n) + pa._RES_STATIC <= 232448
+        assert pa._resident_bwd_smem(n) + pa._RES_STATIC <= 232448
+        ld = pa._resident_ld(n)
+        assert ld >= n and ld % 8 == 0 and ld % 32 == 8
+
+
 def test_cuda_wrapper_refuses_cpu_tensor():
     qkv = torch.zeros(1, 4, 3 * 64)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -201,6 +242,63 @@ def test_kernel_walks_several_heads_per_block(cuda, mode, dtype):
     assert b * h >= 2 * slots and pa._n_slots(cuda, b * h) == slots
     qkv, tang = (torch.from_numpy(x).to(cuda, dtype) for x in _inputs(8, b, n, h, d))
     _assert_kernel_matches(*_kernel_vs_plain(qkv, tang, h, d, robust, iters, final_row))
+
+
+def _forced_vs_plain(qkv, tang, h, d, robust, iters, final_row, branch):
+    scale = d**-0.5
+    args = (h, d, scale, robust, iters, final_row)
+    out_k, vecs_k = pa.packed_attention_fwd_cuda(qkv, *args, branch=branch)
+    dq_k = pa.packed_attention_bwd_cuda(qkv, tang, vecs_k, *args, branch=branch)
+    out_p, vecs_p = pa.packed_attention_fwd_plain(qkv, *args)
+    dq_p = pa.packed_attention_bwd_plain(qkv, tang, vecs_p, *args)
+    torch.cuda.synchronize()
+    return (out_k, vecs_k, dq_k), (out_p, vecs_p, dq_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("branch", ["resident", "scratch"])
+@pytest.mark.parametrize("mode", MODES + [(True, 1, False), (True, 8, True)],
+                         ids=lambda m: f"robust{int(m[0])}-{m[1]}-{int(m[2])}")
+@pytest.mark.parametrize("shape", [(4, 196, 12, 64), (2, 197, 4, 64), (2, 17, 2, 64),
+                                   (3, 130, 2, 64), (1, 198, 2, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_both_branches_match_plain_bf16(cuda, branch, mode, shape):
+    """Each branch on bf16 inside the resident range, against the plain
+    version; the resident kernels also give the same bits twice."""
+    robust, iters, final_row = mode
+    b, n, h, d = shape
+    qkv, tang = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _inputs(9, b, n, h, d))
+    got, want = _forced_vs_plain(qkv, tang, h, d, robust, iters, final_row, branch)
+    _assert_kernel_matches(got, want)
+    if branch == "resident":
+        again, _ = _forced_vs_plain(qkv, tang, h, d, robust, iters, final_row, branch)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_resident_branch_refuses_outside_its_range(cuda):
+    qkv = torch.zeros(1, pa.RESIDENT_MAX_N + 1, 3 * 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="resident branch"):
+        pa.packed_attention_fwd_cuda(qkv, 1, 64, 0.125, branch="resident")
+    with pytest.raises(ValueError, match="resident branch"):
+        pa.packed_attention_fwd_cuda(qkv[:, :196].float().contiguous(), 1, 64, 0.125,
+                                     branch="resident")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,n,branch", [(torch.bfloat16, 196, "resident"),
+                                            (torch.bfloat16, 300, "scratch"),
+                                            (torch.float32, 196, "scratch")], ids=str)
+def test_launch_counts_by_branch(cuda, dtype, n, branch):
+    qkv, tang = (torch.from_numpy(x).to(cuda, dtype) for x in _inputs(10, 1, n, 2, 64))
+    for c in (pa.launches, pa.launches_resident, pa.launches_scratch):
+        c.reset()
+    _, vecs = pa.packed_attention_fwd_cuda(qkv, 2, 64, 0.125, True)
+    pa.packed_attention_bwd_cuda(qkv, tang, vecs, 2, 64, 0.125, True)
+    torch.cuda.synchronize()
+    on = pa.launches_resident if branch == "resident" else pa.launches_scratch
+    off = pa.launches_scratch if branch == "resident" else pa.launches_resident
+    assert (pa.launches.fwd, pa.launches.bwd, on.fwd, on.bwd, off.fwd, off.bwd) == (1, 1, 1, 1, 0, 0)
 
 
 @pytest.mark.gpu
