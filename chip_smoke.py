@@ -11,8 +11,9 @@ Phases, one line each (or a few):
   1. device   the card's name and power limit, as nvidia-smi reports them;
               exits non-zero without a CUDA device
   2. build    nvcc build of noise_robust_vit_tpu_torch/ops/cuda/csrc (one nvcc
-              a source, in parallel), seconds; the resident packed kernels'
-              registers, stack and spills from the build's -Xptxas -v report
+              a source, in parallel), seconds; the resident packed and fused
+              kernels' registers, stack and spills from the build's -Xptxas
+              -v report
   3. kernels  the packed branch rule, Python's formula against the
               library's at every N ≤ 1024 and D 32/64/128; packed kernels
               against their plain versions at [8, 196|197, 2304] (H=12,
@@ -49,11 +50,15 @@ Phases, one line each (or a few):
               [128, 1, 3136 | 784, 64] and stage 2 [128, 3, 784 | 196, 64]
               bf16 and a ragged float32 [2, 2, 300 | 130, 24], (3, final),
               (4, no final) and (1, final), out, residual vectors, dq, dk, dv,
-              and the bits of two runs at stage 1; the fused q/k/v kernels
-              against theirs at MobileViT-XS's three stages [2048, 256 | 64 |
-              16, 8] (512 sequences × 4 heads of 8) bf16 and float32, ragged
-              N (50, 100), DV ≠ D and D = 32, every mode, out, residual rows,
-              dq, dk, dv, and the bits of two runs at each stage; the fused
+              and the bits of two runs at stage 1; the fused q/k/v branch
+              rule, Python's formula against the library's at every N ≤ 300;
+              the fused q/k/v kernels against theirs at MobileViT-XS's three
+              stages [2048, 256 | 64 | 16, 8] (512 sequences × 4 heads of 8)
+              bf16 (the resident branch) and float32, ragged N (50, 100), DV ≠
+              D and D = 32 (the recompute branch), every mode, out, residual
+              rows, dq, dk, dv, each call's branch by its launch counts, and
+              the bits of two runs at each stage (bf16 vanilla and (3,
+              final), float32 (3, final)); the fused
               LayerNorm kernels against theirs at SimpleViT-B/16's [50176,
               768] bf16 and float32, D 128, 1024, 1280 and 8192, ragged row
               counts (1, 500), y, dx, dscale and dbias (y and dx float32 atol
@@ -81,10 +86,11 @@ Phases, one line each (or a few):
               launches each way); 5 + 5 steps of CvT-13 @224 bf16 at batch 64
               (3 streaming and 10 rect launches each way a robust step, 0
               square, 0 biased; none vanilla); small MobileViT f32 robust at
-              128 px card vs cpu in train mode (3 fused launches each way); 5
-              + 5 steps of MobileViT-XS @256 bf16 at batch 64 (9 fused
-              launches each way a robust step, no other kernel; none
-              vanilla); every earlier model's steps count 0 fused launches;
+              128 px card vs cpu in train mode (3 fused launches each way, on
+              the recompute branch); 5 + 5 steps of MobileViT-XS @256 bf16 at
+              batch 64 (9 fused launches each way a robust step, all on the
+              resident branch, no other kernel; none vanilla); every earlier
+              model's steps count 0 fused launches;
               a small SimpleViT (D 128) built with NRV_FUSED_LN=1 card vs
               cpu (4 fused-LN launches each way on the card); small robust
               f32 VisionTransformers card vs cpu, patch stem and conv stem
@@ -110,10 +116,13 @@ Phases, one line each (or a few):
               streaming kernels at CvT-13's stages 1 and 2 bf16 beside their
               plain versions, the vector form and
               scaled_dot_product_attention; the fused kernels at MobileViT-XS's
-              stage 1 bf16, robust and vanilla, beside their plain versions,
-              the vector form and (vanilla) scaled_dot_product_attention, and
-              at stages 2 and 3 beside the biased kernels with no bias (the
-              matrix held in shared memory); the train step of SimpleViT-B/16
+              three stages bf16, robust and vanilla, the resident and the
+              recompute branch in turns in the same call (at stage 1 the
+              resident ones must be faster), beside their plain versions and
+              (vanilla) scaled_dot_product_attention, at stage 1 the vector
+              form, at stages 2 and 3 the biased kernels with no bias (the
+              matrix held in shared memory), and the recompute branch alone
+              in float32 at stage 1; the train step of SimpleViT-B/16
               at batch 256, Swin-T at batch 128, LeViT-128S at batch 256,
               CaiT, CvT-13 and MobileViT-XS (256 px) at batch 128 (median of
               3 windows of 5 steps after one warm-up step): img/s, MFU
@@ -1407,16 +1416,36 @@ def fused_pairs(fa, torch, q, k, v, g, robust, iters, final_row):
 
 
 def phase_fused_kernels(fa, torch, dev):
-    """Fused q/k/v kernels against their plain versions at FUSED_SHAPES, all
-    four MODES (vanilla, (3, final), (4, no final), (4, final)): out, the
-    residual rows, dq, dk and dv. float32: atol 1e-4, rtol 1e-3 (the sums
-    run in another order and the reverse chain amplifies it); bfloat16 q, k,
-    v (math in float32): out, dq, dk, dv atol and rtol 2e-2 (one bf16
-    rounding of values of order one), the float32 residual rows atol and
-    rtol 1e-3. Then two runs at each MobileViT-XS stage shape give the same
-    bits. Returns the largest bfloat16 errors at the three stage shapes,
-    robust (3, final): fwd (out), bwd (dq, dk, dv)."""
-    worst = {"fwd": 0.0, "bwd": 0.0}
+    """Fused q/k/v kernels against their plain versions. The branch rule
+    first: Python's formula against the library's (nrv_fused_resident_fits)
+    at every N ≤ 300, D/DV 8/8, 8/16, 16/8 and 4/4, vanilla and robust at 1,
+    3, 8 and 9 iterations. Then FUSED_SHAPES, all four MODES (vanilla, (3,
+    final), (4, no final), (4, final)): out, the residual rows, dq, dk and
+    dv; bf16 at MobileViT-XS's three stages takes the resident kernels, the
+    rest (float32, ragged, DV ≠ D, D = 32) the recompute kernels, and each
+    call's branch is checked by its launch counts. float32: atol 1e-4, rtol
+    1e-3 (the sums run in another order and the reverse chain amplifies
+    it); bfloat16 q, k, v (math in float32): out, dq, dk, dv atol and rtol
+    2e-2 (one bf16 rounding of values of order one), the float32 residual
+    rows atol and rtol 1e-3. Then two runs at each MobileViT-XS stage shape
+    give the same bits, bf16 vanilla and (3, final), float32 (3, final).
+    Returns the largest errors of (3, final) at the three stage shapes: under
+    "resident" the bf16 ones, under "recompute" the float32 ones, each fwd
+    (out) and bwd (dq, dk, dv)."""
+    from noise_robust_vit_tpu_torch.ops.cuda import build
+
+    lib = build.load_library()
+    combos = [(n, d, dv, robust, iters) for n in range(1, 301)
+              for d, dv in ((8, 8), (8, 16), (16, 8), (4, 4))
+              for robust, iters in ((False, 3), (True, 1), (True, 3), (True, 8), (True, 9))]
+    wrong = [c for c in combos
+             if bool(lib.nrv_fused_resident_fits(c[0], c[1], c[2], int(c[3]), c[4]))
+             != fa._resident_fits(*c)]
+    if wrong:
+        raise RuntimeError(f"fused branch rule: Python and csrc disagree at {wrong[:5]}")
+    log(f"kernels: fused branch rule: Python and the library agree at {len(combos)} shapes; "
+        f"resident at bf16 D = DV = 8, N ≤ {max(c[0] for c in combos if fa._resident_fits(*c))}")
+    worst = {b: {"fwd": 0.0, "bwd": 0.0} for b in ("resident", "recompute")}
     rng = np.random.default_rng(50)
     names = ["out", "vecs", "dq", "dk", "dv"]
     for label, shape, dnames in FUSED_SHAPES:
@@ -1425,11 +1454,19 @@ def phase_fused_kernels(fa, torch, dev):
             bf16 = dtype == torch.bfloat16
             q, k, v, g = fused_inputs(torch, dev, rng, shape, dtype)
             for mode in MODES:
+                branch = fa.fused_branch(shape[1], shape[2], shape[3], dtype, mode[0], mode[1])
+                counts = {b: getattr(fa, f"launches_{b}") for b in ("resident", "recompute")}
+                for c in counts.values():
+                    c.reset()
                 got, want = fused_pairs(fa, torch, q, k, v, g, *mode)
+                if any((c.fwd, c.bwd) != ((1, 1) if b == branch else (0, 0))
+                       for b, c in counts.items()):
+                    raise RuntimeError(f"fused {label} {dname}: expected one {branch} launch "
+                                       "each way and no other")
                 errs = {nm: (a.float() - b.float()).abs().max().item()
                         for nm, a, b in zip(names, got, want)}
-                log(f"kernels: fused {label} {dname} {list(shape)} robust={int(mode[0])} "
-                    f"iters={mode[1]} final_row={int(mode[2])} max_abs_err "
+                log(f"kernels: fused {label} {dname} {list(shape)} {branch} robust="
+                    f"{int(mode[0])} iters={mode[1]} final_row={int(mode[2])} max_abs_err "
                     + " ".join(f"{nm}={e:.3g}" for nm, e in errs.items()))
                 for nm, a, b in zip(names, got, want):
                     if nm == "vecs":
@@ -1440,14 +1477,17 @@ def phase_fused_kernels(fa, torch, dev):
                                                    msg=nm)
                     else:
                         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=nm)
-                if label.startswith("mobile_vit") and bf16 and mode == (True, 3, True):
-                    worst["fwd"] = max(worst["fwd"], errs["out"])
-                    worst["bwd"] = max(worst["bwd"], errs["dq"], errs["dk"], errs["dv"])
+                stage = label.startswith("mobile_vit")
+                if stage and mode == (True, 3, True):
+                    w = worst[branch]
+                    w["fwd"] = max(w["fwd"], errs["out"])
+                    w["bwd"] = max(w["bwd"], errs["dq"], errs["dk"], errs["dv"])
+                if stage and (mode == (True, 3, True) or (bf16 and mode == MODES[0])):
                     again = fused_pairs(fa, torch, q, k, v, g, *mode)[0]
                     if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                        raise RuntimeError("fused: two runs gave different bits")
-                    log(f"kernels: fused {list(shape)} {dname}: two runs give the same bits "
-                        f"(out, vecs, dq, dk, dv)")
+                        raise RuntimeError(f"fused {branch}: two runs gave different bits")
+                    log(f"kernels: fused {list(shape)} {dname} {branch} robust={int(mode[0])}: "
+                        f"two runs give the same bits (out, vecs, dq, dk, dv)")
                     del again
                 del got, want
             del q, k, v, g
@@ -1466,7 +1506,8 @@ def phase_small_mobile_vit(fa, torch, dev):
     the same weights on the CPU, in train mode: logits, every parameter
     gradient and the BN running statistics after the step (atol 1e-4, rtol
     1e-3, as LeViT's and CvT's). Every parameter is perturbed from a seed.
-    3 fused launches each way on the card, none on the CPU."""
+    3 fused launches each way on the card (float32: the recompute kernels),
+    none on the CPU. Returns the card's recompute launches (fwd, bwd)."""
     from noise_robust_vit_tpu_torch import MobileViT
 
     gen = torch.Generator().manual_seed(51)
@@ -1482,14 +1523,16 @@ def phase_small_mobile_vit(fa, torch, dev):
     outs = []
     for model, xx, yy in ((cpu, x, y), (gpu, x.to(dev), y.to(dev))):
         model.train()
-        fa.launches.reset()
+        for c in (fa.launches, fa.launches_recompute):
+            c.reset()
         logits = model(xx)
         torch.nn.functional.cross_entropy(logits.float(), yy).backward()
         outs.append((logits.detach().cpu(),
                      {k: p.grad.cpu() for k, p in model.named_parameters()},
                      {k: b.cpu() for k, b in model.named_buffers()},
-                     (fa.launches.fwd, fa.launches.bwd)))
-    if outs[0][3] != (0, 0) or outs[1][3] != (3, 3):
+                     (fa.launches.fwd, fa.launches.bwd),
+                     (fa.launches_recompute.fwd, fa.launches_recompute.bwd)))
+    if outs[0][3] != (0, 0) or outs[1][3] != (3, 3) or outs[1][4] != (3, 3):
         raise RuntimeError(f"small mobile_vit: fused launches cpu {outs[0][3]}, card "
                            f"{outs[1][3]}, expected (0, 0) and (3, 3)")
     torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-3)
@@ -1500,81 +1543,126 @@ def phase_small_mobile_vit(fa, torch, dev):
     err_bn = max((outs[1][2][k] - v).abs().max().item() for k, v in outs[0][2].items())
     log(f"slice: small MobileViT f32 robust 128 px train mode card vs cpu: logits, grads and "
         f"BN running stats agree (max grad err {err:.3g}, stats {err_bn:.3g}), fused launches "
-        f"3/3 on the card, 0 on the cpu")
+        f"3/3 on the card (recompute branch), 0 on the cpu")
+    return {"fwd": outs[1][4][0], "bwd": outs[1][4][1]}
+
+
+def fused_bounds(q, v, vecs, robust):
+    """(fwd, bwd) bounds of a fused call from its inputs (attention_work): the
+    bytes each direction must move once, the products on the bf16 tensor
+    cores and the float32 passes."""
+    kb, n, d = q.shape
+    qkv_b = 3 * q.numel() * q.element_size()
+    out_b, vec_b = v.numel() * v.element_size(), vecs.numel() * 4
+    return attention_work(kb, n, d, v.shape[2], (qkv_b, qkv_b + out_b + vec_b),
+                          (out_b + vec_b, qkv_b), robust, 3, True, 0)
 
 
 def phase_fused_times(fa, ba, torch, dev):
-    """Fused kernels at MobileViT-XS's stage-1 q/k/v ([512, 4, 256, 8] as
-    [2048, 256, 8], bf16), robust (3, final) and vanilla, beside their plain
-    versions, the vector form (``ops.dot_product_attention`` with the fused
-    dispatch off: float32 logits, softmax, the scaling vectors, attn·v; its
-    backward through autograd) and, for vanilla, scaled_dot_product_attention
-    (the library yardstick). Each bound comes from these inputs: the bytes
-    each direction must move once, the products on the bf16 tensor cores and
-    the float32 passes (attention_work). Then, at stage 2 ([2048, 64, 8]),
-    the other design beside the fused kernels: the biased kernels with no
-    bias, which keep each item's N×N matrix in shared memory (they take N up
-    to 196, so not stage 1). Log only."""
+    """Fused kernels at MobileViT-XS's three stage shapes ([512, 4, N, 8] as
+    [2048, N, 8], N = 256, 64, 16, bf16), robust (3, final) and vanilla: the
+    resident and the recompute kernels in turns (resident, recompute,
+    recompute, resident; the mean of each pair), beside their plain versions
+    and, for vanilla, scaled_dot_product_attention (the library yardstick).
+    At stage 1 the resident kernels must beat the recompute ones in both
+    modes and directions, and the vector form (``ops.dot_product_attention``
+    with the fused dispatch off: float32 logits, softmax, the scaling
+    vectors, attn·v; its backward through autograd) is timed too; at stages
+    2 and 3 the biased kernels with no bias (robust), which keep each item's
+    N×N matrix in shared memory. Then the recompute kernels alone at stage 1
+    in float32, robust, the dtype that takes them. Returns the times by
+    (stage, robust) and under "f32", each with its plain, library and bound
+    entries."""
     from noise_robust_vit_tpu_torch import ops
 
     rng = np.random.default_rng(53)
-    kb, n, d, dv = MVIT_F1
-    q, k, v, g = fused_inputs(torch, dev, rng, MVIT_F1, torch.bfloat16)
-    scale = d ** -0.5
     times = {}
-    for robust in (True, False):
-        _, vecs = fa.fused_attention_fwd_cuda(q, k, v, scale, robust)
-        t = {"fwd": cuda_ms(lambda: fa.fused_attention_fwd_cuda(q, k, v, scale, robust), 20),
-             "fwd_plain": cuda_ms(lambda: fa.fused_attention_fwd_plain(q, k, v, scale, robust), 3),
-             "bwd": cuda_ms(lambda: fa.fused_attention_bwd_cuda(q, k, v, g, vecs, scale, robust),
-                            20),
-             "bwd_plain": cuda_ms(
-                 lambda: fa.fused_attention_bwd_plain(q, k, v, g, vecs, scale, robust), 3),
-             "fwd_lib": None, "bwd_lib": None}
-        heads = [x.reshape(kb // 4, 4, n, -1) for x in (q, k, v, g)]
-        real = ops.attention.fused_dispatch
-        ops.attention.fused_dispatch = lambda *a, **kw: False
-        try:
-            vec_fwd = cuda_ms(lambda: ops.dot_product_attention(*heads[:3], robust=robust), 5)
-            leaves = [x.detach().requires_grad_(True) for x in heads[:3]]
-            out = ops.dot_product_attention(*leaves, robust=robust)
-            vec_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, heads[3],
-                                                          retain_graph=True), 5)
-        finally:
-            ops.attention.fused_dispatch = real
-        del out, leaves
-        if not robust:
-            t["fwd_lib"], t["bwd_lib"] = sdpa_ms(torch, *heads[:3], None, heads[3])
-        qkv_b, out_b, vec_b = 3 * q.numel() * 2, v.numel() * 2, vecs.numel() * 4
-        (t["fwd_bound"], t["fwd_by"]), (t["bwd_bound"], t["bwd_by"]) = attention_work(
-            kb, n, d, dv, (qkv_b, qkv_b + out_b + vec_b), (out_b + vec_b, qkv_b), robust, 3,
-            True, 0)
-        times[robust] = t
-        lib = "" if robust else f"; sdpa fwd {t['fwd_lib']:.4f} bwd {t['bwd_lib']:.4f}"
-        log(f"timing: fused attention bf16 MobileViT-XS stage 1 [{kb},{n},{d}] robust="
-            f"{int(robust)} (3, final) ms: fwd {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, "
-            f"vector form {vec_fwd:.4f}, bound {t['fwd_bound']:.4f} {t['fwd_by']}) bwd "
-            f"{t['bwd']:.4f} (plain {t['bwd_plain']:.4f}, vector form {vec_bwd:.4f}, bound "
-            f"{t['bwd_bound']:.4f} {t['bwd_by']}){lib}")
-        del vecs, heads
-    del q, k, v, g
-    for label, shape in (("stage 2", MVIT_F2), ("stage 3", MVIT_F3)):
+    for label, shape in (("stage 1", MVIT_F1), ("stage 2", MVIT_F2), ("stage 3", MVIT_F3)):
         kb, n, d, dv = shape
+        scale = d ** -0.5
         q, k, v, g = fused_inputs(torch, dev, rng, shape, torch.bfloat16)
-        _, vecs = fa.fused_attention_fwd_cuda(q, k, v, scale, True)
         heads = [x.reshape(kb // 4, 4, n, -1) for x in (q, k, v, g)]
-        bias = torch.zeros(1, 4, n, n, device=dev)
-        args = (scale, True, 3, True, 1, True)
-        _, bvecs = ba.biased_attention_fwd_cuda(*heads[:3], bias, *args)
-        tt = [cuda_ms(lambda: fa.fused_attention_fwd_cuda(q, k, v, scale, True), 20),
-              cuda_ms(lambda: fa.fused_attention_bwd_cuda(q, k, v, g, vecs, scale, True), 20),
-              cuda_ms(lambda: ba.biased_attention_fwd_cuda(*heads[:3], bias, *args), 20),
-              cuda_ms(lambda: ba.biased_attention_bwd_cuda(*heads[:3], bias, heads[3], bvecs,
-                                                           *args), 20)]
-        log(f"timing: fused attention bf16 MobileViT-XS {label} [{kb},{n},{d}] robust=1 (3, "
-            f"final) ms: fwd {tt[0]:.4f} bwd {tt[1]:.4f}; the matrix in shared memory (biased "
-            f"kernels, no bias) fwd {tt[2]:.4f} bwd {tt[3]:.4f}")
-        del q, k, v, g, vecs, heads, bias, bvecs
+        for robust in (True, False):
+            _, vecs = fa.fused_attention_fwd_cuda(q, k, v, scale, robust)
+            runs = {}
+            for branch in ("resident", "recompute", "recompute", "resident"):
+                runs.setdefault(branch, []).append((
+                    cuda_ms(lambda: fa.fused_attention_fwd_cuda(q, k, v, scale, robust,
+                                                                branch=branch), 20),
+                    cuda_ms(lambda: fa.fused_attention_bwd_cuda(q, k, v, g, vecs, scale, robust,
+                                                                branch=branch), 20)))
+            t = {"fwd_plain": cuda_ms(lambda: fa.fused_attention_fwd_plain(q, k, v, scale,
+                                                                           robust), 3),
+                 "bwd_plain": cuda_ms(lambda: fa.fused_attention_bwd_plain(q, k, v, g, vecs,
+                                                                           scale, robust), 3),
+                 "fwd_lib": None, "bwd_lib": None}
+            if not robust:
+                t["fwd_lib"], t["bwd_lib"] = sdpa_ms(torch, *heads[:3], None, heads[3])
+            (t["fwd_bound"], t["fwd_by"]), (t["bwd_bound"], t["bwd_by"]) = fused_bounds(
+                q, v, vecs, robust)
+            for branch, pairs in runs.items():
+                t[branch] = {"fwd": statistics.mean(p[0] for p in pairs),
+                             "bwd": statistics.mean(p[1] for p in pairs)}
+            new, old = t["resident"], t["recompute"]
+            lib = "" if robust else f"; sdpa fwd {t['fwd_lib']:.4f} bwd {t['bwd_lib']:.4f}"
+            log(f"timing: fused attention bf16 MobileViT-XS {label} [{kb},{n},{d}] robust="
+                f"{int(robust)}{' (3, final)' if robust else ''} ms: resident fwd "
+                f"{new['fwd']:.4f} {[round(p[0], 4) for p in runs['resident']]} bwd "
+                f"{new['bwd']:.4f} {[round(p[1], 4) for p in runs['resident']]}; recompute fwd "
+                f"{old['fwd']:.4f} {[round(p[0], 4) for p in runs['recompute']]} bwd "
+                f"{old['bwd']:.4f} {[round(p[1], 4) for p in runs['recompute']]}; plain fwd "
+                f"{t['fwd_plain']:.4f} bwd {t['bwd_plain']:.4f}; bound fwd {t['fwd_bound']:.4f} "
+                f"{t['fwd_by']} bwd {t['bwd_bound']:.4f} {t['bwd_by']}{lib}; resident/recompute "
+                f"fwd {new['fwd'] / old['fwd']:.4f} bwd {new['bwd'] / old['bwd']:.4f}")
+            if label == "stage 1":
+                if not (new["fwd"] < old["fwd"] and new["bwd"] < old["bwd"]):
+                    raise RuntimeError(f"fused stage 1 robust={int(robust)}: the resident "
+                                       "kernels are not faster than the recompute kernels")
+                real = ops.attention.fused_dispatch
+                ops.attention.fused_dispatch = lambda *a, **kw: False
+                try:
+                    vec_fwd = cuda_ms(lambda: ops.dot_product_attention(*heads[:3],
+                                                                        robust=robust), 5)
+                    leaves = [x.detach().requires_grad_(True) for x in heads[:3]]
+                    out = ops.dot_product_attention(*leaves, robust=robust)
+                    vec_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, heads[3],
+                                                                  retain_graph=True), 5)
+                finally:
+                    ops.attention.fused_dispatch = real
+                del out, leaves
+                log(f"timing: fused attention stage 1 robust={int(robust)}: the vector form fwd "
+                    f"{vec_fwd:.4f} bwd {vec_bwd:.4f} ms")
+            elif robust:
+                bias = torch.zeros(1, 4, n, n, device=dev)
+                args = (scale, True, 3, True, 1, True)
+                _, bvecs = ba.biased_attention_fwd_cuda(*heads[:3], bias, *args)
+                bt = (cuda_ms(lambda: ba.biased_attention_fwd_cuda(*heads[:3], bias, *args), 20),
+                      cuda_ms(lambda: ba.biased_attention_bwd_cuda(*heads[:3], bias, heads[3],
+                                                                   bvecs, *args), 20))
+                log(f"timing: fused attention {label} robust=1: the matrix in shared memory "
+                    f"(biased kernels, no bias) fwd {bt[0]:.4f} bwd {bt[1]:.4f} ms")
+                del bias, bvecs
+            times[label, robust] = t
+            del vecs
+        del q, k, v, g, heads
+    kb, n, d, dv = MVIT_F1
+    q, k, v, g = fused_inputs(torch, dev, rng, MVIT_F1, torch.float32)
+    _, vecs = fa.fused_attention_fwd_cuda(q, k, v, d ** -0.5, True)
+    t = {"fwd": cuda_ms(lambda: fa.fused_attention_fwd_cuda(q, k, v, d ** -0.5, True), 10),
+         "bwd": cuda_ms(lambda: fa.fused_attention_bwd_cuda(q, k, v, g, vecs, d ** -0.5, True),
+                        10),
+         "fwd_plain": cuda_ms(lambda: fa.fused_attention_fwd_plain(q, k, v, d ** -0.5, True), 3),
+         "bwd_plain": cuda_ms(lambda: fa.fused_attention_bwd_plain(q, k, v, g, vecs, d ** -0.5,
+                                                                   True), 3),
+         "fwd_lib": None, "bwd_lib": None}
+    (t["fwd_bound"], t["fwd_by"]), (t["bwd_bound"], t["bwd_by"]) = fused_bounds(
+        q, v, vecs, True)
+    log(f"timing: fused attention float32 stage 1 [{kb},{n},{d}] recompute robust=1 (3, final) "
+        f"ms: fwd {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, bound {t['fwd_bound']:.4f} "
+        f"{t['fwd_by']}) bwd {t['bwd']:.4f} (plain {t['bwd_plain']:.4f}, bound "
+        f"{t['bwd_bound']:.4f} {t['bwd_by']})")
+    times["f32"] = t
+    del q, k, v, g, vecs
     torch.cuda.empty_cache()
     return times
 
@@ -1866,12 +1954,13 @@ def phase_ln_times(fl, torch, dev, shape=LN_MAIN):
     return t
 
 
-RESIDENT_SOURCES = ("packed_resident_fwd.cu", "packed_resident_bwd.cu")
+RESIDENT_SOURCES = ("packed_resident_fwd.cu", "packed_resident_bwd.cu", "fused_resident_fwd.cu",
+                    "fused_resident_bwd.cu")
 
 
 def ptxas_report(build, lib_path):
-    """The resident packed kernels' registers, shared memory and spills,
-    from the build's -Xptxas -v report."""
+    """The resident packed and fused kernels' registers, shared memory and
+    spills, from the build's -Xptxas -v report."""
     section = None
     for line in build.ptxas_log(lib_path).read_text().splitlines():
         if line.startswith("== "):
@@ -1946,7 +2035,7 @@ def main() -> int:
     phase_small_levit(ba, ss, torch, dev)
     phase_small_cait(th, torch, dev)
     phase_small_cvt(sa, ss, torch, dev)
-    phase_small_mobile_vit(fa, torch, dev)
+    recompute_launches = phase_small_mobile_vit(fa, torch, dev)
     phase_small_fused_ln_model(fl, pa, torch, dev)
     phase_small_vit(pa, fl, torch, dev)
     torch.cuda.synchronize()
@@ -2002,11 +2091,15 @@ def main() -> int:
                                    "fused": 0, "fused_ln": 0},
                             False: {"streaming": 0, "rect": 0, "square": 0, "biased": 0,
                                     "fused": 0, "fused_ln": 0}})
-    mvit_counts = {"fused": fa.launches, "packed": pa.launches, "biased": ba.launches,
-                   "streaming": sa.launches, "square": ss.launches, "rect": ss.launches_rect,
-                   "fused_ln": fl.launches}
+    # every robust MobileViT-XS step runs its 9 + 9 fused launches on the
+    # resident branch
+    mvit_counts = {"fused": fa.launches, "fused_resident": fa.launches_resident,
+                   "fused_recompute": fa.launches_recompute, "packed": pa.launches,
+                   "biased": ba.launches, "streaming": sa.launches, "square": ss.launches,
+                   "rect": ss.launches_rect, "fused_ln": fl.launches}
     counts_m = phase_train(mvit_counts, torch, dev, "mobile_vit_xs",
-                           {r: {"fused": 9 if r else 0, "packed": 0, "biased": 0, "streaming": 0,
+                           {r: {"fused": 9 if r else 0, "fused_resident": 9 if r else 0,
+                                "fused_recompute": 0, "packed": 0, "biased": 0, "streaming": 0,
                                 "square": 0, "rect": 0, "fused_ln": 0} for r in (True, False)},
                            image=256)
     torch.cuda.synchronize()
@@ -2026,6 +2119,8 @@ def main() -> int:
     sttimes = phase_stream_times(sa, torch, dev)
     lap("streaming timing")
     ftimes = phase_fused_times(fa, ba, torch, dev)
+    # the resident kernels' row: MobileViT-XS stage 1, robust (3, final)
+    fused_row = dict(ftimes["stage 1", True], **ftimes["stage 1", True]["resident"])
     lap("fused timing")
     ln_times = phase_ln_times(fl, torch, dev)
     torch.cuda.synchronize()
@@ -2133,10 +2228,18 @@ def main() -> int:
         kernel_entry("streaming_attention_bwd", "streaming_attention_bwd.cu",
                      "streaming_sinkhorn.py:449", counts_c["streaming"]["bwd"], worst_st["bwd"],
                      sttimes["stage 1"], "bwd"),
-        kernel_entry("fused_attention_fwd", "fused_attention_fwd.cu", "sinkhorn_attention.py:147",
-                     counts_m["fused"]["fwd"], worst_f["fwd"], ftimes[True], "fwd"),
-        kernel_entry("fused_attention_bwd", "fused_attention_bwd.cu", "sinkhorn_attention.py:694",
-                     counts_m["fused"]["bwd"], worst_f["bwd"], ftimes[True], "bwd"),
+        kernel_entry("fused_attention_fwd float32", "fused_attention_fwd.cu",
+                     "sinkhorn_attention.py:147", recompute_launches["fwd"],
+                     worst_f["recompute"]["fwd"], ftimes["f32"], "fwd"),
+        kernel_entry("fused_attention_bwd float32", "fused_attention_bwd.cu",
+                     "sinkhorn_attention.py:694", recompute_launches["bwd"],
+                     worst_f["recompute"]["bwd"], ftimes["f32"], "bwd"),
+        kernel_entry("fused_resident_fwd mobile_vit_xs", "fused_resident_fwd.cu",
+                     "sinkhorn_attention.py:147", counts_m["fused_resident"]["fwd"],
+                     worst_f["resident"]["fwd"], fused_row, "fwd"),
+        kernel_entry("fused_resident_bwd mobile_vit_xs", "fused_resident_bwd.cu",
+                     "sinkhorn_attention.py:694", counts_m["fused_resident"]["bwd"],
+                     worst_f["resident"]["bwd"], fused_row, "bwd"),
         kernel_entry("fused_ln_fwd", "fused_ln_fwd.cu", "fused_ln.py:90",
                      counts_ln["fused_ln"]["fwd"], worst_ln["fwd"], ln_times, "fwd"),
         kernel_entry("fused_ln_bwd", "fused_ln_bwd.cu", "fused_ln.py:111",

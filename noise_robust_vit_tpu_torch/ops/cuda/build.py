@@ -89,6 +89,14 @@ _ENTRIES = {
     # q, k, v, g, vecs, dq, dk, dv, dtype, K, N, D, DV, scale, robust, iters,
     # final_row, stream
     "nrv_fused_attention_bwd": ([_VP] * 8 + [_I] * 5 + [_F] + [_I] * 3 + [_VP]),
+    # q, k, v, out, vecs, K, N, D, DV, scale, robust, iters, final_row,
+    # stream (bf16)
+    "nrv_fused_resident_fwd": ([_VP] * 5 + [_I] * 4 + [_F] + [_I] * 3 + [_VP]),
+    # q, k, v, g, vecs, dq, dk, dv, K, N, D, DV, scale, robust, iters,
+    # final_row, stream (bf16)
+    "nrv_fused_resident_bwd": ([_VP] * 8 + [_I] * 4 + [_F] + [_I] * 3 + [_VP]),
+    # N, D, DV, robust, iters
+    "nrv_fused_resident_fits": ([_I] * 5),
     # x, g, b, y, dtype, R, D, eps, stream
     "nrv_fused_ln_fwd": ([_VP] * 4 + [_I] * 3 + [_F, _VP]),
     # x, g, dy, dx, dg_part, db_part, dg, db, dtype, R, D, eps, stream

@@ -1,5 +1,7 @@
 // Fused q/k/v attention for narrow heads: what the forward and backward
-// kernels (fused_attention_{fwd,bwd}.cu) share.
+// kernels of the recompute branch (fused_attention_{fwd,bwd}.cu) share.
+// They take every shape the gate takes; bf16 at D = DV = 8 and N ≤ 256
+// goes to the resident branch instead (fused_resident.cuh).
 //
 // Counterpart of noise_robust_vit_tpu/ops/pallas/sinkhorn_attention.py::
 // fused_attention: plain softmax, or softmax + Sinkhorn in scaling-vector

@@ -10,8 +10,11 @@ ragged: JAX pads them to 128), D of 8, 16 and 32, and DV ≠ D. Tolerances,
 float32: out, dq, dk, dv atol and rtol 5e-5; the residual rows rtol 5e-5
 (the a- and b-vectors run up to N).
 
-The ``gpu`` cases compare the CUDA kernels with the plain versions on the
-card and skip where there is none. JAX is imported only by the tests that
+The kernels have two branches, chosen before the call by
+``fused_branch``: the resident kernels (bf16, D = DV = 8, N ≤ 256) and the
+recompute kernels (every other shape the gate takes). The CPU cases hold the
+rule at the edges of its gate; the ``gpu`` cases compare either branch's
+kernels with the plain versions on the card and skip where there is none. JAX is imported only by the tests that
 compare with it, so the file also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_fused_attention.py -m gpu
@@ -129,6 +132,24 @@ def test_plain_residuals_match_jax_kernel(jx, shape, mode):
     np.testing.assert_allclose(vecs.numpy(), want, atol=1e-6, rtol=5e-5)
 
 
+@pytest.mark.parametrize("mode", MODES[:2], ids=_mode_id)
+@pytest.mark.parametrize("n", [256, 64, 16])
+def test_plain_matches_jax_kernel_at_mobile_vit_stages(jx, n, mode):
+    """At MobileViT-XS's three stage lengths (4 heads of 8, one image), the
+    plain versions, which the resident kernels are held against on the card,
+    against the interpret-mode kernel: out, dq, dk, dv at 5e-5."""
+    robust, iters, final_row = mode
+    shape = (1, 4, n, 8, 8)
+    q, k, v, g = _inputs(11, shape)
+    out_j, grads_j = _jax_vjp(jx, q, k, v, g, 8 ** -0.5, robust, iters, final_row)
+    args = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = fa.FusedAttention.apply(*args, 8 ** -0.5, robust, iters, final_row)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), out_j, **TOL)
+    for name, a, w in zip("qkv", args, grads_j):
+        np.testing.assert_allclose(a.grad.numpy(), w, err_msg=f"d{name}", **TOL)
+
+
 def test_bf16_inputs_match_jax_kernel(jx):
     """bfloat16 q, k, v in, bfloat16 out, float32 math: the plain version
     and the JAX kernel round the same float32 result, so they agree to one
@@ -200,6 +221,56 @@ def test_gate(args, ok):
     assert fa.fused_attention_supported(*args, dtype=torch.float16) is False
 
 
+BF16, F32 = torch.bfloat16, torch.float32
+# (n, d, dv, dtype, robust, iters, branch): the resident branch's rule at the
+# edges of its gate
+BRANCH = [
+    (256, 8, 8, BF16, True, 3, "resident"),      # MobileViT-XS stage 1
+    (64, 8, 8, BF16, True, 3, "resident"),       # stage 2
+    (16, 8, 8, BF16, True, 3, "resident"),       # stage 3
+    (1, 8, 8, BF16, True, 3, "resident"),        # one row
+    (128, 8, 8, BF16, True, 3, "resident"),      # the last N one block holds
+    (129, 8, 8, BF16, True, 3, "resident"),      # the first a cluster of two holds
+    (257, 8, 8, BF16, True, 3, "recompute"),     # beyond the resident rows
+    (256, 16, 16, BF16, True, 3, "recompute"),   # wider heads
+    (256, 8, 16, BF16, True, 3, "recompute"),    # DV ≠ 8
+    (256, 16, 8, BF16, True, 3, "recompute"),    # D ≠ 8
+    (256, 8, 8, F32, True, 3, "recompute"),      # float32
+    (256, 8, 8, F32, False, 3, "recompute"),
+    (256, 8, 8, BF16, False, 3, "resident"),     # vanilla
+    (257, 8, 8, BF16, False, 3, "recompute"),
+    (256, 8, 8, BF16, False, 0, "resident"),     # vanilla ignores the iterations
+    (256, 8, 8, BF16, True, 1, "resident"),
+    (256, 8, 8, BF16, True, 8, "resident"),
+    (257, 8, 8, BF16, True, 8, "recompute"),
+    (16, 8, 8, BF16, True, 8, "resident"),
+    (256, 8, 8, BF16, True, 9, "recompute"),     # beyond 8 (the gate refuses it too)
+]
+
+
+@pytest.mark.parametrize("case", BRANCH, ids=lambda c: (
+    f"n{c[0]}-d{c[1]}-dv{c[2]}-{str(c[3]).split('.')[1]}-"
+    + (f"r{c[5]}" if c[4] else "vanilla")))
+def test_branch_rule(case):
+    """bf16 at D = DV = 8 and N ≤ 256 takes the resident kernels, both modes,
+    1 to 8 iterations; every other shape the recompute kernels."""
+    n, d, dv, dtype, robust, iters, want = case
+    assert fa.fused_branch(n, d, dv, dtype, robust, iters) == want
+
+
+@pytest.mark.parametrize("iters", range(1, 9))
+def test_resident_takes_every_n_up_to_256(iters):
+    """The shared-memory formulas (csrc fwd_smem_bytes, bwd_smem_bytes,
+    mirrored) keep every N from 1 to 256 within a block, robust at every
+    schedule and vanilla; the branch stops at N = 256 (a cluster of two
+    blocks of 128 rows)."""
+    for n in range(1, 257):
+        assert fa._resident_fits(n, 8, 8, True, iters)
+        assert fa._resident_fits(n, 8, 8, False, iters)
+    assert not fa._resident_fits(257, 8, 8, True, iters)
+    assert fa._res_items(16) == 8 and fa._res_items(64) == 2 and fa._res_items(256) == 1
+
+
 def test_threads_per_item():
     """The least power of two ≥ N threads serve an item, at most 256: 16
     items a block at N = 16, 4 at 64, 1 at 256 and above."""
@@ -269,12 +340,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _kernel_vs_plain(q, k, v, g, robust, iters, final_row):
-    """(kernel, plain) results: (out, vecs, dq, dk, dv)."""
+def _kernel_vs_plain(q, k, v, g, robust, iters, final_row, branch=None):
+    """(kernel, plain) results: (out, vecs, dq, dk, dv); the kernels of
+    ``branch`` (the rule's by default)."""
     scale = q.shape[-1] ** -0.5
-    got = fa.fused_attention_fwd_cuda(q, k, v, scale, robust, iters, final_row)
+    got = fa.fused_attention_fwd_cuda(q, k, v, scale, robust, iters, final_row, branch)
     got = (*got, *fa.fused_attention_bwd_cuda(q, k, v, g, got[1], scale, robust, iters,
-                                              final_row))
+                                              final_row, branch))
     want = fa.fused_attention_fwd_plain(q, k, v, scale, robust, iters, final_row)
     want = (*want, *fa.fused_attention_bwd_plain(q, k, v, g, want[1], scale, robust, iters,
                                                  final_row))
@@ -359,3 +431,97 @@ def test_autograd_on_card_launches_kernels(cuda):
                                rtol=1e-3)
     for a, b in zip(card, cpu):
         np.testing.assert_allclose(a.grad.cpu().numpy(), b.grad.numpy(), atol=1e-4, rtol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# on the card: the two branches
+# --------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES[:2], ids=_mode_id)
+@pytest.mark.parametrize("shape", CARD_SHAPES[:3], ids=_ids)
+def test_resident_branch_matches_plain(cuda, shape, mode):
+    """At MobileViT-XS's three stages, bf16: the rule picks the resident
+    kernels, which launch (and no recompute kernel) and agree with the plain
+    versions to one bf16 ulp."""
+    inputs = card_inputs(cuda, 12, shape, torch.bfloat16)
+    assert fa.fused_branch(shape[1], 8, 8, torch.bfloat16, mode[0], mode[1]) == "resident"
+    fa.launches_resident.reset()
+    fa.launches_recompute.reset()
+    assert_kernel_matches(*_kernel_vs_plain(*inputs, *mode))
+    assert (fa.launches_resident.fwd, fa.launches_resident.bwd) == (1, 1)
+    assert (fa.launches_recompute.fwd, fa.launches_recompute.bwd) == (0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES[:2], ids=_mode_id)
+@pytest.mark.parametrize("shape", CARD_SHAPES[:3], ids=_ids)
+def test_resident_branch_repeats_bit_for_bit(cuda, shape, mode):
+    """Column sums over an item's warps (and a cluster's two blocks) run in a
+    fixed order: two runs give the same bits."""
+    inputs = card_inputs(cuda, 13, shape, torch.bfloat16)
+    first = _kernel_vs_plain(*inputs, *mode, branch="resident")[0]
+    again = _kernel_vs_plain(*inputs, *mode, branch="resident")[0]
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("iters", [1, 8])
+@pytest.mark.parametrize("n", [1, 50, 129, 200])
+def test_resident_branch_at_ragged_n(cuda, n, iters):
+    """Ragged N (rows and columns masked; at 129 and 200 a cluster's second
+    block holds a partial band) and the shortest and longest schedules."""
+    inputs = card_inputs(cuda, 14, (5, n, 8, 8), torch.bfloat16)
+    assert_kernel_matches(*_kernel_vs_plain(*inputs, True, iters, iters == 1, "resident"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", CARD_SHAPES[:3], ids=_ids)
+def test_recompute_branch_forced_in_bf16(cuda, shape):
+    """The recompute kernels still take bf16 at the stage shapes when asked."""
+    inputs = card_inputs(cuda, 15, shape, torch.bfloat16)
+    assert_kernel_matches(*_kernel_vs_plain(*inputs, True, 3, True, "recompute"))
+
+
+@pytest.mark.gpu
+def test_branch_rule_matches_library(cuda):
+    """The Python rule and the library's (nrv_fused_resident_fits) agree."""
+    from noise_robust_vit_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    for n in range(1, 301):
+        for d, dv in ((8, 8), (8, 16), (16, 8), (4, 4)):
+            for robust, iters in ((False, 3), (True, 1), (True, 3), (True, 8), (True, 9)):
+                assert bool(lib.nrv_fused_resident_fits(n, d, dv, int(robust), iters)) == \
+                    fa._resident_fits(n, d, dv, robust, iters), (n, d, dv, robust, iters)
+
+
+@pytest.mark.gpu
+def test_resident_branch_refuses_what_it_does_not_take(cuda):
+    for shape, dtype in (((4, 64, 8, 8), torch.float32), ((4, 64, 16, 16), torch.bfloat16),
+                         ((4, 300, 8, 8), torch.bfloat16)):
+        q, k, v, _ = card_inputs(cuda, 16, shape, dtype)
+        with pytest.raises(ValueError, match="resident branch"):
+            fa.fused_attention_fwd_cuda(q, k, v, 0.35, True, branch="resident")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("robust", [True, False])
+def test_mobile_vit_xs_launches_only_the_resident_branch(cuda, robust):
+    """A robust MobileViT-XS @256 bf16 forward and backward launches the
+    resident kernels 9 times each way (its 9 transformer layers) and the
+    recompute kernels never; a vanilla one launches neither."""
+    from noise_robust_vit_tpu_torch import create_model
+
+    model = create_model("mobile_vit_xs", num_classes=10, image_size=256, robust=robust,
+                         dtype=torch.bfloat16, device=cuda, seed=0)
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (2, 256, 256, 3), dtype=np.float32)).to(cuda, torch.bfloat16)
+    for c in (fa.launches, fa.launches_resident, fa.launches_recompute):
+        c.reset()
+    model(x).float().square().sum().backward()
+    torch.cuda.synchronize()
+    want = (9, 9) if robust else (0, 0)
+    assert (fa.launches_resident.fwd, fa.launches_resident.bwd) == want
+    assert (fa.launches_recompute.fwd, fa.launches_recompute.bwd) == (0, 0)
+    assert (fa.launches.fwd, fa.launches.bwd) == want
