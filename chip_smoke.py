@@ -24,12 +24,18 @@ Phases, one line each (or a few):
               branch with the bits of two runs; the scratch branch in
               float32 at those shapes, in bf16 forced at [8, 196, 2304] and
               above the resident range at [8, 400, 2304], every mode;
-              biased kernels against theirs at the four Swin-T stage shapes of
-              a batch of 128 with their real window counts, swin_v2_t's N=64,
-              LeViT's [256, 4, 196, 16] (DV 32), LeViT-256's stage 0
-              [64, 4, 196, 32] (DV 64, o/a and t1 in 32-column chunks) and
-              Twins' local [8192, 8, 49, 64] with no bias, out, residual
-              rows, dq, dk, dv and dbias; the square and rectangular
+              the biased branch rule, Python's formula against the library's
+              at every N ≤ 80; biased kernels against theirs at the four
+              Swin-T stage shapes of a batch of 128 with their real window
+              counts, swin_v2_t's N=64, LeViT-128S's three stages [256, 4,
+              196 | 6, 49 | 8, 16, 16] (DV 32), LeViT-256's stages 0 and 1
+              [64, 4, 196 | 6, 49, 32] (DV 64; at N=196 o/a and t1 in
+              32-column chunks) and Twins' local [8192, 8, 49, 64] with no
+              bias, out, residual rows, dq, dk, dv and dbias, every mode:
+              bf16 at N ≤ 64 on the resident branch with the bits of two
+              runs, float32 and N=196 on the shared-memory branch, each
+              call's branch by its launch counts, and the shared-memory
+              branch forced in bf16 at Swin-T stage 0; the square and rectangular
               logits-interface Sinkhorn kernels against theirs at
               LeViT-128S's and LeViT-256's subsample logits, deepvit's
               [128, 8, 197, 197], 196×196 (nest_tiny's N), ragged shapes and
@@ -71,11 +77,13 @@ Phases, one line each (or a few):
               statistics); 5 AdamW steps (lr 1e-4, wd 0.05) on one fixed
               batch of 64, robust and vanilla, of SimpleViT-B/16, Swin-T and
               LeViT-128S bf16: finite, falling loss, and the launches per
-              step of each kernel (12 packed, SimpleViT; 12 biased robust, 0
-              vanilla, Swin-T; 9 biased and 2 rect robust, 0 vanilla,
-              LeViT-128S); one robust fwd+bwd of swin_v2_t bf16 at batch 32
-              (N=64) and of LeViT-256 bf16 at batch 64 (12 biased, stage 0
-              at DV 64 included, 2 rect, 0 square); robust_softmax fwd+bwd
+              step of each kernel (12 packed, SimpleViT; 12 biased robust,
+              all resident, 0 vanilla, Swin-T; 9 biased (7 resident, 2
+              shared-memory) and 2 rect robust, 0 vanilla, LeViT-128S); one
+              robust fwd+bwd of swin_v2_t bf16 at batch 32 (N=64, 12
+              resident) and of LeViT-256 bf16 at batch 64 (12 biased: 8
+              resident, stage 0's 4 shared-memory at DV 64; 2 rect, 0
+              square); robust_softmax fwd+bwd
               on deepvit's square f32 logits [128, 8, 197, 197] (1 square
               launch each way: no ported model runs the square kernel yet);
               small CaiT f32 robust (N = 49) card vs cpu (2 talking-heads
@@ -107,8 +115,12 @@ Phases, one line each (or a few):
               modes, the resident and the scratch branch in turns in the
               same call, and the resident ones must be faster; the scratch
               branch alone in float32 at [256, 196, 2304], robust),
-              [8192, 3, 49, 32], nW=64 (biased), with
-              scaled_dot_product_attention as the vanilla yardstick, and
+              [8192, 3, 49, 32], nW=64 (biased: the resident and the
+              shared-memory branch in turns, both modes, and the resident
+              ones must be faster; scaled_dot_product_attention as the
+              vanilla yardstick, without dbias and with the bias's
+              gradient; the shared-memory kernels alone at LeViT-128S's and
+              LeViT-256's stage 0), and
               [256, 8, 49, 196] (rect) and [128, 8, 197, 197] (square) f32
               with torch.softmax as the vanilla counterpart, the
               talking-heads kernels at CaiT's [128, 8, 196, 196] f32 beside
@@ -125,7 +137,8 @@ Phases, one line each (or a few):
               in float32 at stage 1; the train step of SimpleViT-B/16
               at batch 256, Swin-T at batch 128, LeViT-128S at batch 256,
               CaiT, CvT-13 and MobileViT-XS (256 px) at batch 128 (median of
-              3 windows of 5 steps after one warm-up step): img/s, MFU
+              3 windows of 5 steps after one warm-up step): img/s, the
+              host's time to enqueue a step, MFU
               against 989 TFLOP/s dense bf16, peak memory, and CaiT's,
               CvT-13's and MobileViT-XS's robust/vanilla ratios; the fused
               LayerNorm kernels at [50176, 768] bf16 beside their plain
@@ -369,43 +382,91 @@ def phase_kernels(pa, torch, dev):
     return worst
 
 
+def biased_pairs(ba, torch, q, k, v, g, bias, args, branch=None):
+    """(kernel, plain) results of the biased kernels on the same inputs: out,
+    vecs, dq, dk, dv, dbias (None with no bias)."""
+    out_k, vecs_k = ba.biased_attention_fwd_cuda(q, k, v, bias, *args, branch=branch)
+    got = (out_k, vecs_k, *ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs_k, *args,
+                                                          branch=branch))
+    torch.cuda.synchronize()
+    out_p, vecs_p = ba.biased_attention_fwd_plain(q, k, v, bias, *args)
+    want = (out_p, vecs_p, *ba.biased_attention_bwd_plain(q, k, v, bias, g, vecs_p, *args))
+    torch.cuda.synchronize()
+    return got, want
+
+
 def phase_biased_kernels(ba, torch, dev):
-    """Biased kernels against their plain versions, every mode, float32 and
-    bfloat16: at the four Swin-T stage shapes of a batch of 128 with their
-    real window counts, swin_v2_t's N=64 (stages 0 and 3 at batch 32),
-    LeViT's [256, 4, 196, 16] with DV=32 and one per-head bias, LeViT-256's
-    stage 0 [64, 4, 196, 32] with DV=64 (the backward forms o/a and t1 32
-    columns at a time), and Twins' local [8192, 8, 49, 64] with no bias.
-    Returns the largest bfloat16 errors at the Swin-T stage shapes (fwd out; bwd dq, dk, dv, dbias)."""
-    worst = {"fwd": 0.0, "bwd": 0.0}
+    """Biased kernels against their plain versions. The branch rule first:
+    Python's formula against the library's (nrv_biased_resident_fits) at
+    every N ≤ 80, D and DV in 8, 16, 32, 40, 64, 128, vanilla and robust at
+    1, 3, 8 and 9 iterations. Then every mode, float32 and bfloat16: at the
+    four Swin-T stage shapes of a batch of 128 with their real window
+    counts, swin_v2_t's N=64 (stages 0 and 3 at batch 32), LeViT-128S's
+    stages at batch 256 ([256, 4, 196 | 6, 49 | 8, 16, 16], DV=32, one
+    per-head bias), LeViT-256's stages 0 and 1 at batch 64 ([64, 4, 196 |
+    6, 49, 32], DV=64; at N=196 the shared-memory backward forms o/a and t1
+    32 columns at a time), and Twins' local [8192, 8, 49, 64] with no bias.
+    bf16 at N ≤ 64 takes the resident kernels, the rest (float32, N=196)
+    the shared-memory kernels, each call's branch checked by its launch
+    counts. Then the shared-memory kernels forced in bf16 at Swin-T stage 0,
+    every mode. Each bf16 check of either branch runs twice for the same
+    bits (at LeViT's N=196 the shared-memory backward sums dbias from
+    several chunks).
+    Returns the largest bfloat16 errors (fwd out; bwd dq, dk, dv, dbias):
+    under "resident" at the Swin-T stage shapes, under "shared" at
+    LeViT-128S's stage 0 (N=196), the shared kernels' main path."""
+    from noise_robust_vit_tpu_torch.ops.cuda import build
+
+    lib = build.load_library()
+    combos = [(n, d, dv, robust, iters) for n in range(1, 81)
+              for d in (8, 16, 32, 40, 64, 128) for dv in (8, 16, 32, 40, 64, 128)
+              for robust, iters in ((False, 3), (True, 1), (True, 3), (True, 8), (True, 9))]
+    wrong = [c for c in combos
+             if bool(lib.nrv_biased_resident_fits(c[0], c[1], c[2], int(c[3]), c[4]))
+             != ba._resident_fits(*c)]
+    if wrong:
+        raise RuntimeError(f"biased branch rule: Python and csrc disagree at {wrong[:5]}")
+    log(f"kernels: biased branch rule: Python and the library agree at {len(combos)} shapes; "
+        f"resident at bf16, N <= {max(c[0] for c in combos if ba._resident_fits(*c))}, "
+        f"D and DV in {sorted({c[1] for c in combos if ba._resident_fits(*c)})}")
+    worst = {b: {"fwd": 0.0, "bwd": 0.0} for b in ("resident", "shared")}
     rng = np.random.default_rng(10)
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [(f"swin_t stage {i}", (*shape, shape[-1]), nw, False)
+    # (label, (BW, H, N, D, DV), nW, no_bias, dtypes, forced branch)
+    cases = [(f"swin_t stage {i}", (*shape, shape[-1]), nw, False, (f32, bf16), None)
              for i, (shape, nw) in enumerate(SWIN_T_STAGES)]
-    cases += [("swin_v2_t stage 0", (1568, 3, 64, 32, 32), 49, False),
-              ("swin_v2_t stage 3", (32, 24, 64, 32, 32), 1, False),
-              ("levit", (256, 4, 196, 16, 32), 1, False),
-              ("levit_256 stage 0", (64, 4, 196, 32, 64), 1, False),
-              ("twins local", (8192, 8, 49, 64, 64), 1, True)]
+    cases += [("swin_t stage 0", (*SWIN_T_STAGES[0][0], 32), SWIN_T_STAGES[0][1], False, (bf16,),
+               "shared"),
+              ("swin_v2_t stage 0", (1568, 3, 64, 32, 32), 49, False, (f32, bf16), None),
+              ("swin_v2_t stage 3", (32, 24, 64, 32, 32), 1, False, (f32, bf16), None),
+              ("levit_128s stage 0", (256, 4, 196, 16, 32), 1, False, (f32, bf16), None),
+              ("levit_128s stage 1", (256, 6, 49, 16, 32), 1, False, (f32, bf16), None),
+              ("levit_128s stage 2", (256, 8, 16, 16, 32), 1, False, (f32, bf16), None),
+              ("levit_256 stage 0", (64, 4, 196, 32, 64), 1, False, (f32, bf16), None),
+              ("levit_256 stage 1", (64, 6, 49, 32, 64), 1, False, (f32, bf16), None),
+              ("twins local", (8192, 8, 49, 64, 64), 1, True, (f32, bf16), None)]
     names = ["out", "vecs", "dq", "dk", "dv", "dbias"]
-    for label, (bw, h, n, d, dv), nw, no_bias in cases:
+    branches = {"resident": ba.launches_resident, "shared": ba.launches_shared}
+    for label, (bw, h, n, d, dv), nw, no_bias, dtypes, forced in cases:
         q32, k32 = (device_normal(torch, dev, rng, (bw, h, n, d)) for _ in range(2))
         v32, g32 = (device_normal(torch, dev, rng, (bw, h, n, dv)) for _ in range(2))
         bias = device_normal(torch, dev, rng, (nw, h, n, n))
-        for dtype in (f32, bf16):
+        for dtype in dtypes:
             q, k, v, g = (t.to(dtype) for t in (q32, k32, v32, g32))
             for robust, iters, final_row in MODES:
                 args = (d ** -0.5, robust, iters, final_row, nw, no_bias)
-                out_k, vecs_k = ba.biased_attention_fwd_cuda(q, k, v, bias, *args)
-                got = (out_k, vecs_k, *ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs_k, *args))
-                torch.cuda.synchronize()
-                out_p, vecs_p = ba.biased_attention_fwd_plain(q, k, v, bias, *args)
-                want = (out_p, vecs_p, *ba.biased_attention_bwd_plain(q, k, v, bias, g, vecs_p, *args))
-                torch.cuda.synchronize()
+                branch = forced or ba.biased_branch(n, d, dv, dtype, robust, iters)
+                for c in branches.values():
+                    c.reset()
+                got, want = biased_pairs(ba, torch, q, k, v, g, bias, args, forced)
+                if any((c.fwd, c.bwd) != ((1, 1) if b == branch else (0, 0))
+                       for b, c in branches.items()):
+                    raise RuntimeError(f"biased {label} {dtype}: expected one {branch} launch "
+                                       "each way and no other")
                 errs = {nm: (a.float() - b.float()).abs().max().item()
                         for nm, a, b in zip(names, got, want) if a is not None}
                 log(f"kernels: biased {label} {str(dtype).split('.')[1]} [{bw},{h},{n},{d}] "
-                    f"DV={dv} nW={nw} no_bias={int(no_bias)} robust={int(robust)} "
+                    f"DV={dv} nW={nw} no_bias={int(no_bias)} {branch} robust={int(robust)} "
                     f"iters={iters} final_row={int(final_row)} max_abs_err "
                     + " ".join(f"{nm}={e:.3g}" for nm, e in errs.items()))
                 for nm, a, b in zip(names, got, want):
@@ -422,10 +483,23 @@ def phase_biased_kernels(ba, torch, dev):
                         rtol = 0 if nm == "out" else 2e-2
                         torch.testing.assert_close(a.float(), b.float(), atol=2e-2,
                                                    rtol=rtol, msg=nm)
-                if dtype == bf16 and label.startswith("swin_t"):
-                    worst["fwd"] = max(worst["fwd"], errs["out"])
-                    worst["bwd"] = max(worst["bwd"], *(errs[nm] for nm in names[2:] if nm in errs))
-                del got, want, out_k, vecs_k, out_p, vecs_p
+                key = ("resident" if dtype == bf16 and label.startswith("swin_t") and not forced
+                       else "shared" if dtype == bf16 and label == "levit_128s stage 0"
+                       else None)
+                if key:
+                    worst[key]["fwd"] = max(worst[key]["fwd"], errs["out"])
+                    worst[key]["bwd"] = max(worst[key]["bwd"],
+                                            *(errs[nm] for nm in names[2:] if nm in errs))
+                if dtype == bf16:
+                    again = ba.biased_attention_fwd_cuda(q, k, v, bias, *args, branch=forced)
+                    again = (*again, *ba.biased_attention_bwd_cuda(q, k, v, bias, g, again[1],
+                                                                   *args, branch=forced))
+                    if not all(torch.equal(a, b) for a, b in zip(got, again) if a is not None):
+                        raise RuntimeError(f"biased {branch} {label}: two runs differ")
+                    log(f"kernels: biased {label} {branch} robust={int(robust)} iters={iters} "
+                        f"final_row={int(final_row)}: two runs give the same bits")
+                    del again
+                del got, want
         del q32, k32, v32, g32, bias, q, k, v, g
         torch.cuda.empty_cache()
     return worst
@@ -481,11 +555,73 @@ def sdpa_ms(torch, q, k, v, mask, g):
     return fwd, bwd
 
 
+def sdpa_backend(torch, q, k, v, mask):
+    """The backend scaled_dot_product_attention picks for these operands
+    (torch._fused_sdp_choice), by name, or "unknown" where this PyTorch does
+    not say."""
+    from torch.nn.attention import SDPBackend
+
+    choice = getattr(torch, "_fused_sdp_choice", None)
+    return "unknown" if choice is None else SDPBackend(choice(q, k, v, attn_mask=mask)).name
+
+
+def sdpa_dbias_ms(torch, q, k, v, bias, g):
+    """The same function as the vanilla biased kernels, dbias included: one
+    scaled_dot_product_attention call whose attn_mask is the bias [nW, H, N,
+    N] (bf16) expanded over the images from a leaf that requires grad, so
+    that its backward also yields dbias summed over the images. The first
+    backend (memory-efficient, cuDNN, math) that takes a mask gradient is
+    timed; returns (backend, fwd ms, bwd ms)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bw, h, n, _ = q.shape
+    nw = bias.shape[0]
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v, bias.to(q.dtype))]
+
+    def mask():
+        return leaves[3].unsqueeze(0).expand(bw // nw, nw, h, n, n).reshape(bw, h, n, n)
+
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        with sdpa_kernel(backend):
+            try:
+                out = sdpa(*leaves[:3], attn_mask=mask())
+                torch.autograd.grad(out, leaves, g)
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue
+            fwd = cuda_ms(lambda: sdpa(*leaves[:3], attn_mask=mask()), 10)
+            out = sdpa(*leaves[:3], attn_mask=mask())
+            bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 10)
+            return backend.name, fwd, bwd
+    raise RuntimeError("no scaled_dot_product_attention backend takes the mask's gradient")
+
+
+def biased_bounds(q, v, bias, vecs, robust, no_bias=False):
+    """(fwd, bwd) bounds of a biased call from its inputs (attention_work):
+    the bytes each direction must move once (q, k, v, the bias, out and the
+    residual rows; q, k, v, g, the rows and the bias in, dq, dk, dv and
+    dbias out), its products and its float32 passes."""
+    bw, h, n, d = q.shape
+    el = q.element_size()
+    qk_b, v_b = 2 * q.numel() * el, v.numel() * el
+    vec_b, bias_b = vecs.numel() * 4, 0 if no_bias else bias.numel() * 4
+    return attention_work(bw * h, n, d, v.shape[-1], (qk_b + v_b + bias_b,
+                                                      qk_b + 2 * v_b + vec_b + bias_b),
+                          (v_b + vec_b, qk_b + v_b + bias_b), robust, 3, True,
+                          0 if no_bias else 1)
+
+
 def phase_biased_times(ba, torch, dev, shape=SWIN_T_STAGES[0]):
-    """Biased kernels at Swin-T stage 0, bf16, robust (3, final) and vanilla,
-    beside the plain versions; for vanilla also SDPA with the bias as its
-    attn_mask (materialized as [BW, H, N, N] bf16). Each row's bound comes
-    from these inputs."""
+    """Biased kernels at Swin-T stage 0, bf16, robust (3, final) and vanilla:
+    the resident and the shared-memory kernels in turns (resident, shared,
+    shared, resident; the mean of each pair), and the resident ones must be
+    faster in both modes and directions; beside them the plain versions,
+    the bound from these inputs, and for vanilla SDPA with the bias as its
+    attn_mask (materialized as [BW, H, N, N] bf16), without dbias (and the
+    backend it picks) and with it (sdpa_dbias_ms), and the faster of the
+    two forwards. Returns the times by robust, each with its
+    "resident" and "shared" entries."""
     (bw, h, n, d), nw = shape
     rng = np.random.default_rng(13)
     q, k, v, g = (device_normal(torch, dev, rng, (bw, h, n, d)).to(torch.bfloat16)
@@ -495,29 +631,49 @@ def phase_biased_times(ba, torch, dev, shape=SWIN_T_STAGES[0]):
     for robust in (True, False):
         args = (d ** -0.5, robust, 3, True, nw, False)
         _, vecs = ba.biased_attention_fwd_cuda(q, k, v, bias, *args)
-        t = {
-            "fwd": cuda_ms(lambda: ba.biased_attention_fwd_cuda(q, k, v, bias, *args), 20),
-            "fwd_plain": cuda_ms(lambda: ba.biased_attention_fwd_plain(q, k, v, bias, *args), 5),
-            "bwd": cuda_ms(lambda: ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs, *args), 20),
-            "bwd_plain": cuda_ms(lambda: ba.biased_attention_bwd_plain(q, k, v, bias, g, vecs, *args), 5),
-        }
-        t["fwd_lib"] = t["bwd_lib"] = None
+        runs = {}
+        for branch in ("resident", "shared", "shared", "resident"):
+            runs.setdefault(branch, []).append((
+                cuda_ms(lambda: ba.biased_attention_fwd_cuda(q, k, v, bias, *args,
+                                                             branch=branch), 20),
+                cuda_ms(lambda: ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs, *args,
+                                                             branch=branch), 20)))
+        t = {"fwd_plain": cuda_ms(lambda: ba.biased_attention_fwd_plain(q, k, v, bias, *args), 5),
+             "bwd_plain": cuda_ms(lambda: ba.biased_attention_bwd_plain(q, k, v, bias, g, vecs,
+                                                                        *args), 5),
+             "fwd_lib": None, "bwd_lib": None}
+        lib = ""
         if not robust:
-            mask = bias.to(torch.bfloat16).unsqueeze(0).expand(bw // nw, nw, h, n, n).reshape(bw, h, n, n)
+            mask = bias.to(torch.bfloat16).unsqueeze(0).expand(bw // nw, nw, h, n, n).reshape(
+                bw, h, n, n)
             t["fwd_lib"], t["bwd_lib"] = sdpa_ms(torch, q, k, v, mask, g)
+            plain_backend = sdpa_backend(torch, q, k, v, mask)
             del mask
-        el, r = 2, vecs.shape[2]
-        qkv_b, out_b = 3 * q.numel() * el, v.numel() * el
-        vec_b, bias_b = vecs.numel() * 4, bias.numel() * 4
-        (t["fwd_bound"], t["fwd_by"]), (t["bwd_bound"], t["bwd_by"]) = attention_work(
-            bw * h, n, d, d, (qkv_b + bias_b, qkv_b + out_b + vec_b + bias_b),
-            (out_b + vec_b, qkv_b + bias_b), robust, 3, True, 1)
+            backend, t["fwd_lib_dbias"], t["bwd_lib_dbias"] = sdpa_dbias_ms(torch, q, k, v,
+                                                                            bias, g)
+            lib = (f"; sdpa fwd {t['fwd_lib']:.4f} bwd {t['bwd_lib']:.4f} (no dbias, "
+                   f"{plain_backend}), with dbias ({backend}) fwd {t['fwd_lib_dbias']:.4f} "
+                   f"bwd {t['bwd_lib_dbias']:.4f}; sdpa's faster fwd "
+                   f"{min(t['fwd_lib'], t['fwd_lib_dbias']):.4f}")
+        (t["fwd_bound"], t["fwd_by"]), (t["bwd_bound"], t["bwd_by"]) = biased_bounds(
+            q, v, bias, vecs, robust)
+        for branch, pairs in runs.items():
+            t[branch] = {"fwd": statistics.mean(p[0] for p in pairs),
+                         "bwd": statistics.mean(p[1] for p in pairs)}
+        new, old = t["resident"], t["shared"]
         times[robust] = t
-        lib = "" if robust else (f"; sdpa fwd {t['fwd_lib']:.4f} bwd {t['bwd_lib']:.4f}")
-        log(f"timing: biased attention bf16 [{bw},{h},{n},{d}] nW={nw} robust={int(robust)} "
-            f"(3, final) ms: fwd {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, bound "
-            f"{t['fwd_bound']:.4f} {t['fwd_by']}) bwd {t['bwd']:.4f} (plain "
-            f"{t['bwd_plain']:.4f}, bound {t['bwd_bound']:.4f} {t['bwd_by']}){lib}")
+        log(f"timing: biased attention bf16 [{bw},{h},{n},{d}] nW={nw} robust={int(robust)}"
+            f"{' (3, final)' if robust else ''} ms: resident fwd {new['fwd']:.4f} "
+            f"{[round(p[0], 4) for p in runs['resident']]} bwd {new['bwd']:.4f} "
+            f"{[round(p[1], 4) for p in runs['resident']]}; shared fwd {old['fwd']:.4f} "
+            f"{[round(p[0], 4) for p in runs['shared']]} bwd {old['bwd']:.4f} "
+            f"{[round(p[1], 4) for p in runs['shared']]}; plain fwd {t['fwd_plain']:.4f} bwd "
+            f"{t['bwd_plain']:.4f}; bound fwd {t['fwd_bound']:.4f} {t['fwd_by']} bwd "
+            f"{t['bwd_bound']:.4f} {t['bwd_by']}{lib}; resident/shared fwd "
+            f"{new['fwd'] / old['fwd']:.4f} bwd {new['bwd'] / old['bwd']:.4f}")
+        if not (new["fwd"] < old["fwd"] and new["bwd"] < old["bwd"]):
+            raise RuntimeError(f"biased robust={int(robust)}: the resident kernels are not "
+                               "faster than the shared-memory kernels")
         del vecs
     # what BiasedAttention's contiguous copies of the q, k, v views that
     # Swin's qkv projection gives cost at this shape
@@ -531,25 +687,41 @@ def phase_biased_times(ba, torch, dev, shape=SWIN_T_STAGES[0]):
     return times
 
 
-def phase_biased_levit_times(ba, torch, dev, shape=(64, 4, 196, 32, 64)):
-    """Biased kernels at LeViT-256's stage 0 in bf16, robust (3, final),
-    beside their plain versions: N=196 with DV=64, where the backward forms
-    o/a and t1 32 columns at a time. Log only."""
-    bw, h, n, d, dv = shape
+def phase_biased_levit_times(ba, torch, dev):
+    """The shared-memory biased kernels at their main paths' shapes, bf16,
+    robust (3, final), beside their plain versions and the bound: LeViT-128S
+    stage 0 [256, 4, 196, 16] with DV=32 (2 launches each way a robust
+    step) and LeViT-256 stage 0 [64, 4, 196, 32] with DV=64 (4; the
+    backward forms o/a and t1 32 columns at a time). Returns LeViT-128S's
+    times."""
     rng = np.random.default_rng(14)
-    q, k = (device_normal(torch, dev, rng, (bw, h, n, d)).to(torch.bfloat16) for _ in range(2))
-    v, g = (device_normal(torch, dev, rng, (bw, h, n, dv)).to(torch.bfloat16) for _ in range(2))
-    bias = device_normal(torch, dev, rng, (1, h, n, n))
-    args = (d ** -0.5, True, 3, True, 1, False)
-    _, vecs = ba.biased_attention_fwd_cuda(q, k, v, bias, *args)
-    t = [cuda_ms(lambda: ba.biased_attention_fwd_cuda(q, k, v, bias, *args), 20),
-         cuda_ms(lambda: ba.biased_attention_fwd_plain(q, k, v, bias, *args), 5),
-         cuda_ms(lambda: ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs, *args), 20),
-         cuda_ms(lambda: ba.biased_attention_bwd_plain(q, k, v, bias, g, vecs, *args), 5)]
-    log(f"timing: biased attention bf16 LeViT-256 stage 0 [{bw},{h},{n},{d}] DV={dv} robust=1 "
-        f"(3, final) ms: fwd {t[0]:.4f} (plain {t[1]:.4f}) bwd {t[2]:.4f} (plain {t[3]:.4f})")
-    del q, k, v, g, bias, vecs
+    result = None
+    for label, (bw, h, n, d, dv) in (("LeViT-128S", (256, 4, 196, 16, 32)),
+                                     ("LeViT-256", (64, 4, 196, 32, 64))):
+        q, k = (device_normal(torch, dev, rng, (bw, h, n, d)).to(torch.bfloat16)
+                for _ in range(2))
+        v, g = (device_normal(torch, dev, rng, (bw, h, n, dv)).to(torch.bfloat16)
+                for _ in range(2))
+        bias = device_normal(torch, dev, rng, (1, h, n, n))
+        args = (d ** -0.5, True, 3, True, 1, False)
+        _, vecs = ba.biased_attention_fwd_cuda(q, k, v, bias, *args)
+        t = {"fwd": cuda_ms(lambda: ba.biased_attention_fwd_cuda(q, k, v, bias, *args), 20),
+             "fwd_plain": cuda_ms(lambda: ba.biased_attention_fwd_plain(q, k, v, bias, *args), 5),
+             "bwd": cuda_ms(lambda: ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs, *args),
+                            20),
+             "bwd_plain": cuda_ms(lambda: ba.biased_attention_bwd_plain(q, k, v, bias, g, vecs,
+                                                                        *args), 5),
+             "fwd_lib": None, "bwd_lib": None}
+        (t["fwd_bound"], t["fwd_by"]), (t["bwd_bound"], t["bwd_by"]) = biased_bounds(
+            q, v, bias, vecs, True)
+        log(f"timing: biased attention bf16 {label} stage 0 [{bw},{h},{n},{d}] DV={dv} "
+            f"shared robust=1 (3, final) ms: fwd {t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, "
+            f"bound {t['fwd_bound']:.4f} {t['fwd_by']}) bwd {t['bwd']:.4f} (plain "
+            f"{t['bwd_plain']:.4f}, bound {t['bwd_bound']:.4f} {t['bwd_by']})")
+        result = result or t
+        del q, k, v, g, bias, vecs
     torch.cuda.empty_cache()
+    return result
 
 
 def phase_small_model(torch, dev):
@@ -624,7 +796,7 @@ def phase_train(counts, torch, dev, name, per_step, steps=5, batch=64, image=224
 
 def phase_swin_v2(ba, torch, dev, batch=32):
     """One robust fwd+bwd of swin_v2_t bf16, whose 12 attentions run the
-    biased kernels at N=64."""
+    resident biased kernels at N=64."""
     from noise_robust_vit_tpu_torch import create_model
 
     rng = np.random.default_rng(12)
@@ -633,13 +805,16 @@ def phase_swin_v2(ba, torch, dev, batch=32):
     model = create_model("swin_v2_t", num_classes=1000, robust=True,
                          dtype=torch.bfloat16, device=dev, seed=0)
     ba.launches.reset()
+    ba.launches_resident.reset()
     loss = torch.nn.functional.cross_entropy(model(x).float(), y)
     loss.backward()
     torch.cuda.synchronize()
+    got = (ba.launches.fwd, ba.launches.bwd, ba.launches_resident.fwd, ba.launches_resident.bwd)
     log(f"slice: swin_v2_t bf16 robust batch={batch} fwd+bwd loss={float(loss):.5f} "
-        f"biased launches fwd={ba.launches.fwd} bwd={ba.launches.bwd} (N=64)")
-    if not math.isfinite(float(loss)) or (ba.launches.fwd, ba.launches.bwd) != (12, 12):
-        raise RuntimeError("swin_v2_t: non-finite loss or not 12 launches of each kernel")
+        f"biased launches fwd={got[0]} bwd={got[1]}, resident {got[2]}/{got[3]} (N=64)")
+    if not math.isfinite(float(loss)) or got != (12, 12, 12, 12):
+        raise RuntimeError("swin_v2_t: non-finite loss or not 12 resident launches of each "
+                           "kernel")
     del model
     torch.cuda.empty_cache()
 
@@ -780,9 +955,10 @@ def phase_small_levit(ba, ss, torch, dev):
 
 def phase_levit_256(ba, ss, torch, dev, batch=64):
     """One robust fwd+bwd of LeViT-256 bf16: all twelve square attentions
-    run the biased kernels, stage 0's at N=196 with DV=64 included, as in
-    the JAX package, and the two subsamples the rectangular ones; no square
-    logits reach the square kernel."""
+    run the biased kernels, as in the JAX package, stages 1 and 2 (N=49 and
+    16, 8 of them) the resident ones and stage 0's four at N=196 with DV=64
+    the shared-memory ones; the two subsamples run the rectangular kernels;
+    no square logits reach the square kernel."""
     from noise_robust_vit_tpu_torch import create_model
 
     rng = np.random.default_rng(23)
@@ -790,7 +966,8 @@ def phase_levit_256(ba, ss, torch, dev, batch=64):
     y = torch.from_numpy(rng.integers(0, 1000, size=batch)).to(dev)
     model = create_model("LeViT_256", num_classes=1000, robust=True, dtype=torch.bfloat16,
                          device=dev, seed=0)
-    counts = {"square": ss.launches, "biased": ba.launches, "rect": ss.launches_rect}
+    counts = {"square": ss.launches, "biased": ba.launches, "rect": ss.launches_rect,
+              "biased_resident": ba.launches_resident, "biased_shared": ba.launches_shared}
     for c in counts.values():
         c.reset()
     loss = torch.nn.functional.cross_entropy(model(x).float(), y)
@@ -799,7 +976,8 @@ def phase_levit_256(ba, ss, torch, dev, batch=64):
     got = {k: (c.fwd, c.bwd) for k, c in counts.items()}
     log(f"slice: LeViT_256 bf16 robust batch={batch} fwd+bwd loss={loss:.5f} "
         f"launches (fwd, bwd) {got}")
-    want = {"square": (0, 0), "biased": (12, 12), "rect": (2, 2)}
+    want = {"square": (0, 0), "biased": (12, 12), "rect": (2, 2), "biased_resident": (8, 8),
+            "biased_shared": (4, 4)}
     if not math.isfinite(loss) or got != want:
         raise RuntimeError(f"LeViT_256: non-finite loss or launches {got}, expected {want}")
     del model
@@ -954,8 +1132,10 @@ def phase_kernel_times(pa, torch, dev, b=256, n=196, h=12, d=64, iters=3, final_
 def phase_step_times(torch, dev, name, batch, flops, steps=5, windows=3, image=224):
     """Train step of `name` (bf16, 1000 classes, AdamW lr 1e-3) at `batch` of
     `image`-pixel images, vanilla then robust: median img/s of `windows`
-    windows of `steps` steps, MFU from the analytic `flops` per image, and
-    peak device memory."""
+    windows of `steps` steps, the host's time to enqueue a step (until the
+    window's last train_step returns, before the synchronising read of the
+    loss), MFU from the analytic `flops` per image, and peak device
+    memory."""
     from noise_robust_vit_tpu_torch import create_model
     from noise_robust_vit_tpu_torch.train import create_train_state
 
@@ -970,11 +1150,12 @@ def phase_step_times(torch, dev, name, batch, flops, steps=5, windows=3, image=2
         state = create_train_state(model, lr=1e-3, weight_decay=0.05)
         torch.cuda.reset_peak_memory_stats(dev)
         float(state.train_step(x, y))  # warm-up
-        rates = []
+        rates, enqueue = [], []
         for _ in range(windows):
             t0 = time.perf_counter()
             for _ in range(steps):
                 loss = state.train_step(x, y)
+            enqueue.append((time.perf_counter() - t0) / steps)
             loss = float(loss)
             rates.append(batch * steps / (time.perf_counter() - t0))
         rate = statistics.median(rates)
@@ -982,7 +1163,8 @@ def phase_step_times(torch, dev, name, batch, flops, steps=5, windows=3, image=2
         result[robust] = rate
         log(f"timing: train step {name} bf16 batch={batch} robust={int(robust)}: "
             f"{rate:.2f} img/s (windows {[round(r, 2) for r in rates]}), "
-            f"{1e3 * batch / rate:.2f} ms/step, MFU {rate * flops / PEAK_BF16:.4f}, "
+            f"{1e3 * batch / rate:.2f} ms/step, host enqueue "
+            f"{1e3 * statistics.median(enqueue):.2f} ms/step, MFU {rate * flops / PEAK_BF16:.4f}, "
             f"peak mem {peak:.2f} GiB, loss {loss:.4f}")
         del model, state
     torch.cuda.empty_cache()
@@ -1955,12 +2137,12 @@ def phase_ln_times(fl, torch, dev, shape=LN_MAIN):
 
 
 RESIDENT_SOURCES = ("packed_resident_fwd.cu", "packed_resident_bwd.cu", "fused_resident_fwd.cu",
-                    "fused_resident_bwd.cu")
+                    "fused_resident_bwd.cu", "biased_resident_fwd.cu", "biased_resident_bwd.cu")
 
 
 def ptxas_report(build, lib_path):
-    """The resident packed and fused kernels' registers, shared memory and
-    spills, from the build's -Xptxas -v report."""
+    """The resident packed, fused and biased kernels' registers, shared
+    memory and spills, from the build's -Xptxas -v report."""
     section = None
     for line in build.ptxas_log(lib_path).read_text().splitlines():
         if line.startswith("== "):
@@ -2063,18 +2245,25 @@ def main() -> int:
                                 {r: {**on_resident, "fused_ln": 24} for r in (True, False)})
     log("slice: simple_vit_b16 above with NRV_FUSED_LN=1")
     counts_v = phase_vit_train(pa, fl, torch, dev, {**packed, "fused_ln": fl.launches})
-    counts_b = phase_train({"biased": ba.launches, "fused": fa.launches, "fused_ln": fl.launches},
+    # every robust Swin-T step runs its 12 + 12 biased launches on the
+    # resident branch; LeViT-128S 7 resident (N = 49, 16) and 2 shared (N =
+    # 196) each way
+    biased = {"biased": ba.launches, "biased_resident": ba.launches_resident,
+              "biased_shared": ba.launches_shared}
+    counts_b = phase_train({**biased, "fused": fa.launches, "fused_ln": fl.launches},
                            torch, dev, "swin_t",
-                           {True: {"biased": 12, "fused": 0, "fused_ln": 0},
-                            False: {"biased": 0, "fused": 0, "fused_ln": 0}})["biased"]
+                           {True: {"biased": 12, "biased_resident": 12, "biased_shared": 0,
+                                   "fused": 0, "fused_ln": 0},
+                            False: {"biased": 0, "biased_resident": 0, "biased_shared": 0,
+                                    "fused": 0, "fused_ln": 0}})["biased_resident"]
     phase_swin_v2(ba, torch, dev)
-    levit_counts = {"biased": ba.launches, "rect": ss.launches_rect, "square": ss.launches,
+    levit_counts = {**biased, "rect": ss.launches_rect, "square": ss.launches,
                     "fused": fa.launches, "fused_ln": fl.launches}
     counts_l = phase_train(levit_counts, torch, dev, "levit",
-                           {True: {"biased": 9, "rect": 2, "square": 0, "fused": 0,
-                                   "fused_ln": 0},
-                            False: {"biased": 0, "rect": 0, "square": 0, "fused": 0,
-                                    "fused_ln": 0}})
+                           {True: {"biased": 9, "biased_resident": 7, "biased_shared": 2,
+                                   "rect": 2, "square": 0, "fused": 0, "fused_ln": 0},
+                            False: {"biased": 0, "biased_resident": 0, "biased_shared": 0,
+                                    "rect": 0, "square": 0, "fused": 0, "fused_ln": 0}})
     phase_levit_256(ba, ss, torch, dev)
     counts_sq = phase_square_path(ss, torch, dev)
     cait_counts = {"talking_heads": th.launches, "square": ss.launches, "rect": ss.launches_rect,
@@ -2110,7 +2299,9 @@ def main() -> int:
     ktimes_f32 = phase_kernel_times(pa, torch, dev, dtype=torch.float32, robusts=(True,))
     lap("packed timing")
     btimes = phase_biased_times(ba, torch, dev)
-    phase_biased_levit_times(ba, torch, dev)
+    # the resident kernels' row: Swin-T stage 0, robust (3, final)
+    biased_row = dict(btimes[True], **btimes[True]["resident"])
+    btimes_levit = phase_biased_levit_times(ba, torch, dev)
     lap("biased timing")
     stimes = phase_sinkhorn_times(ss, torch, dev)
     lap("sinkhorn softmax timing")
@@ -2204,10 +2395,18 @@ def main() -> int:
         kernel_entry("packed_resident_bwd vit_b_16", "packed_resident_bwd.cu",
                      "block_attention.py:284", counts_v["packed_resident"]["bwd"],
                      worst[197]["bwd"], ktimes_v[True]["resident"], "bwd"),
-        kernel_entry("biased_attention_fwd", "biased_attention_fwd.cu", "biased_attention.py:230",
-                     counts_b["fwd"], worst_b["fwd"], btimes[True], "fwd"),
-        kernel_entry("biased_attention_bwd", "biased_attention_bwd.cu", "biased_attention.py:296",
-                     counts_b["bwd"], worst_b["bwd"], btimes[True], "bwd"),
+        kernel_entry("biased_attention_fwd levit_128s", "biased_attention_fwd.cu",
+                     "biased_attention.py:230", counts_l["biased_shared"]["fwd"],
+                     worst_b["shared"]["fwd"], btimes_levit, "fwd"),
+        kernel_entry("biased_attention_bwd levit_128s", "biased_attention_bwd.cu",
+                     "biased_attention.py:296", counts_l["biased_shared"]["bwd"],
+                     worst_b["shared"]["bwd"], btimes_levit, "bwd"),
+        kernel_entry("biased_resident_fwd swin_t", "biased_resident_fwd.cu",
+                     "biased_attention.py:230", counts_b["fwd"], worst_b["resident"]["fwd"],
+                     biased_row, "fwd"),
+        kernel_entry("biased_resident_bwd swin_t", "biased_resident_bwd.cu",
+                     "biased_attention.py:296", counts_b["bwd"], worst_b["resident"]["bwd"],
+                     biased_row, "bwd"),
         kernel_entry("sinkhorn_softmax_fwd", "sinkhorn_softmax_fwd.cu", "sinkhorn_softmax.py:229",
                      counts_sq["fwd"], worst_s["square", "fwd"], stimes["square"], "fwd"),
         kernel_entry("sinkhorn_softmax_bwd", "sinkhorn_softmax_bwd.cu", "sinkhorn_softmax.py:266",

@@ -15,12 +15,24 @@ Counterpart of ``noise_robust_vit_tpu/ops/pallas/biased_attention.py``
 
 Three pieces live here, as in ``packed_attention.py``: the plain PyTorch
 versions (the kernels' algorithm in ``plain.py`` plus the bias and the
-dbias sum), the ctypes wrappers of ``csrc/biased_attention_{fwd,bwd}.cu``
-with their launch counts, and ``BiasedAttention``, the autograd function.
+dbias sum), the ctypes wrappers of the kernels with their launch counts
+(``launches``, and by branch ``launches_resident`` / ``launches_shared``),
+and ``BiasedAttention``, the autograd function.
+
+Two branches of kernels compute the function, chosen by shape and dtype
+before the call (``biased_branch``): the resident kernels
+(``csrc/biased_resident_{fwd,bwd}.cu``: bf16, N ≤ 64, D and DV each 16, 32
+or 64; each (image, head) matrix held in registers in float32, the bias row
+loaded once for the images that share it, every product on the tensor
+cores) and the shared-memory kernels (``csrc/biased_attention_{fwd,bwd}.cu``:
+every other shape the gate takes, float32 and N up to 196 included; each
+matrix in a block's shared memory). A CUDA tensor goes to one of them or
+raises.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -37,7 +49,10 @@ __all__ = [
     "biased_attention_fwd_cuda",
     "biased_attention_fwd_plain",
     "biased_attention_supported",
+    "biased_branch",
     "launches",
+    "launches_resident",
+    "launches_shared",
 ]
 
 # Gate. Each (window, head) matrix lives in one block's shared memory, so N
@@ -64,6 +79,21 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _BWD_BLOCKS_PER_SM = 8
 
 launches = LaunchCounts()
+launches_resident = LaunchCounts()
+launches_shared = LaunchCounts()
+
+# The resident branch (csrc/biased_resident.cuh, mirrored here: change one,
+# change the other). A warp holds 16 rows of an item at _res_cols(N)
+# columns; an item takes NC / 16 warps of a 4-warp block, which holds
+# 64 / NC items.
+_RES_MAX_N = 64
+_RES_WIDTHS = (16, 32, 64)
+_RES_WARPS = 4
+_RES_STATIC = 1024
+_RES_RANK_LD = 40  # kRankLd: the rank-1 column factors' row, floats
+# what a unit's start costs (its bias row, its dbias partial) in images of
+# its walk, for the choice of chunks
+_RES_UNIT_COST = 0.5
 
 
 def _bwd_smem_bytes(n: int, dvc: int, iters: int, ka: int) -> int:
@@ -80,6 +110,73 @@ def _dv_chunk(n: int, dv: int, iters: int, ka: int) -> int:
         if dv % dvc == 0 and _bwd_smem_bytes(n, dvc, iters, ka) <= _SMEM_LIMIT:
             return dvc
     return 0
+
+
+def _res_cols(n: int) -> int:
+    """``res_cols``: N rounded up to 16, 32 or 64."""
+    return 16 if n <= 16 else 32 if n <= 32 else 64
+
+
+def _res_items(n: int) -> int:
+    """``res_items``: items a block holds."""
+    return _RES_WARPS // (_res_cols(n) // 16)
+
+
+def _resident_fwd_smem(n: int, d: int, dv: int) -> int:
+    """``fwd_smem_bytes`` in csrc: dynamic shared memory of the forward."""
+    nc = _res_cols(n)
+    ic = _res_items(n) * nc
+    return 2 * ic * (2 * d + dv) * 2 + 4 * (_RES_WARPS * 16 * nc + _RES_WARPS * nc + ic)
+
+
+def _resident_bwd_smem(n: int, d: int, dv: int, it: int) -> int:
+    """``bwd_smem_bytes`` (with ``bwd_part_floats``, ``res_vec_rows`` and
+    ``bwd_comp_rows``) in csrc: dynamic shared memory of the backward; ``it``
+    is the iterations when robust, else 0."""
+    nc, items = _res_cols(n), _res_items(n)
+    ic = items * nc
+    part = max(nc * nc, nc * _RES_RANK_LD if it else 0)
+    vec_rows = 2 * it + 1 if it else 1
+    return 2 * ic * (2 * d + 2 * dv) * 2 + 4 * (_RES_WARPS * 16 * nc + items * part
+                                                + 2 * ic * vec_rows + ic * (1 + 2 * it))
+
+
+def _resident_fits(n: int, d: int, dv: int, robust: bool = True, iters: int = 3) -> bool:
+    """``resident_fits`` in csrc: the shapes the resident kernels take."""
+    if not 1 <= n <= _RES_MAX_N or d not in _RES_WIDTHS or dv not in _RES_WIDTHS:
+        return False
+    if robust and not 1 <= iters <= MAX_ITERS:
+        return False
+    it = iters if robust else 0
+    return (_resident_fwd_smem(n, d, dv) + _RES_STATIC <= _SMEM_LIMIT
+            and _resident_bwd_smem(n, d, dv, it) + _RES_STATIC <= _SMEM_LIMIT)
+
+
+def biased_branch(n: int, d: int, dv: int, dtype: torch.dtype, robust: bool = True,
+                  iters: int = 3) -> str:
+    """The kernels a CUDA call of this shape and dtype goes to: "resident"
+    (bf16 where ``_resident_fits``) or "shared" (every other shape the gate
+    takes)."""
+    return ("resident" if dtype == torch.bfloat16 and _resident_fits(n, d, dv, robust, iters)
+            else "shared")
+
+
+@functools.lru_cache(maxsize=1024)
+def _res_chunks(imgs: int, pairs: int, slots: int) -> tuple[int, int]:
+    """(chunks, images a chunk) of the resident walk: ``slots`` workers (a
+    block's items times the persistent grid) each take whole units (chunk,
+    window, head) of up to ``per`` images; the split whose busiest worker
+    ends first, a unit's start counted as ``_RES_UNIT_COST`` images, and
+    of two equal ones the fewer chunks."""
+    best = None
+    for per in range(imgs, 0, -1):
+        chunks = -(-imgs // per)
+        if (chunks - 1) * per >= imgs:
+            continue  # a chunk would be empty
+        cost = -(-(chunks * pairs) // slots) * (per + _RES_UNIT_COST)
+        if best is None or cost < best[0]:
+            best = (cost, chunks, per)
+    return best[1], best[2]
 
 
 def biased_attention_supported(bw: int, heads: int, n: int, d: int, dv: int,
@@ -137,10 +234,12 @@ def biased_attention_bwd_plain(q, k, v, bias, dout, vecs, scale, robust=False,
 
 
 # --------------------------------------------------------------------------
-# CUDA kernels (csrc/biased_attention_{fwd,bwd}.cu)
+# CUDA kernels (csrc/biased_resident_{fwd,bwd}.cu, csrc/biased_attention_{fwd,bwd}.cu)
 # --------------------------------------------------------------------------
 
-def _check(q, k, v, bias, nw, iters, no_bias):
+def _check(q, k, v, bias, nw, robust, iters, no_bias, branch):
+    """Raise unless the kernels take these operands; returns the branch
+    (``branch`` if given and allowed, else ``biased_branch``'s)."""
     if not q.is_cuda:
         raise ValueError("biased attention kernel: q must be a CUDA tensor")
     if q.dtype not in _DTYPE_CODES:
@@ -156,44 +255,86 @@ def _check(q, k, v, bias, nw, iters, no_bias):
             raise ValueError(f"biased attention kernel: {name} must be a contiguous, "
                              f"16-byte aligned {q.dtype} tensor on {q.device}")
     bw, h, n, d = q.shape
+    dv = v.shape[-1]
     if not no_bias and (bias.device != q.device or bias.dtype != torch.float32
                         or tuple(bias.shape) != (nw, h, n, n)
                         or not bias.is_contiguous()):
         raise ValueError(f"biased attention kernel: bias must be a contiguous float32 "
                          f"[{nw}, {h}, {n}, {n}] tensor on {q.device}")
-    if not biased_attention_supported(bw, h, n, d, v.shape[-1], nw, iters):
+    if not biased_attention_supported(bw, h, n, d, dv, nw, iters):
         raise ValueError(f"biased attention kernel: shape BW={bw} H={h} N={n} D={d} "
-                         f"DV={v.shape[-1]} nW={nw} iters={iters} is outside the gate")
+                         f"DV={dv} nW={nw} iters={iters} is outside the gate")
+    rule = biased_branch(n, d, dv, q.dtype, robust, iters)
+    chosen = branch or rule
+    if chosen not in ("resident", "shared"):
+        raise ValueError(f"biased attention kernel: no branch {chosen!r}")
+    if chosen == "resident" and rule != "resident":
+        raise ValueError(f"biased attention kernel: the resident branch does not take "
+                         f"N={n} D={d} DV={dv} {q.dtype}")
+    return chosen
+
+
+def _count(chosen, direction):
+    for c in (launches, launches_resident if chosen == "resident" else launches_shared):
+        setattr(c, direction, getattr(c, direction) + 1)
+
+
+@functools.lru_cache(maxsize=256)
+def _res_blocks(device_index: int, n: int, d: int, dv: int, robust: bool, iters: int,
+                bwd: bool) -> int:
+    """Blocks of a resident kernel resident on the card at once (the
+    library's ``nrv_biased_resident_blocks``): its persistent grid."""
+    from .build import load_library
+
+    with torch.cuda.device(device_index):
+        blocks = load_library().nrv_biased_resident_blocks(n, d, dv, int(robust), int(iters),
+                                                           int(bwd))
+    if blocks < 1:
+        raise_on(-blocks, "biased attention resident kernel: occupancy query")
+    return blocks
+
+
+def _res_walk(q, v, nw, robust, iters, bwd):
+    """(chunks, images a chunk) of a resident launch over these operands."""
+    bw, h, n, d = q.shape
+    blocks = _res_blocks(q.device.index, n, d, v.shape[-1], bool(robust), int(iters), bwd)
+    return _res_chunks(bw // nw, nw * h, blocks * _res_items(n))
 
 
 def biased_attention_fwd_cuda(q, k, v, bias, scale, robust=False, iters=3,
-                              final_row=True, nw=1, no_bias=False):
-    """Launch the forward kernel; returns ``(out, vecs)`` like the plain
-    version. Raises on anything the kernel does not take."""
+                              final_row=True, nw=1, no_bias=False, branch=None):
+    """Launch the forward kernel of the branch ``biased_branch`` picks (or
+    ``branch``); returns ``(out, vecs)`` like the plain version. Raises on
+    anything the kernel does not take."""
     from .build import load_library
 
     nw = 1 if no_bias else nw
-    _check(q, k, v, bias, nw, iters, no_bias)
+    chosen = _check(q, k, v, bias, nw, robust, iters, no_bias, branch)
     bw, h, n, d = q.shape
     dv = v.shape[-1]
     out = torch.empty_like(v)
     vecs = torch.empty(bw, h, num_vecs(iters, final_row, robust), n,
                        dtype=torch.float32, device=q.device)
+    ptrs = (ptr(q), ptr(k), ptr(v), ptr(None if no_bias else bias), ptr(out), ptr(vecs))
+    cfg = (float(scale), int(robust), int(iters), int(final_row))
     lib = load_library()
     with torch.cuda.device(q.device):
-        err = lib.nrv_biased_attention_fwd(
-            ptr(q), ptr(k), ptr(v), ptr(None if no_bias else bias), ptr(out), ptr(vecs),
-            _DTYPE_CODES[q.dtype], bw, h, n, d, dv, nw, float(scale), int(robust),
-            int(iters), int(final_row), stream(q.device))
-    raise_on(err, "biased attention forward kernel")
-    launches.fwd += 1
+        if chosen == "resident":
+            chunks, per = _res_walk(q, v, nw, robust, iters, False)
+            err = lib.nrv_biased_resident_fwd(*ptrs, bw, h, n, d, dv, nw, *cfg, chunks, per,
+                                              stream(q.device))
+        else:
+            err = lib.nrv_biased_attention_fwd(*ptrs, _DTYPE_CODES[q.dtype], bw, h, n, d, dv,
+                                               nw, *cfg, stream(q.device))
+    raise_on(err, f"biased attention forward kernel ({chosen})")
+    _count(chosen, "fwd")
     return out, vecs
 
 
 def _chunks(device, pairs: int, imgs: int) -> tuple[int, int]:
     """Split each bias row's ``imgs`` images into chunks so that the
-    backward grid (pairs × chunks) fills the card; returns (chunks,
-    images per chunk), no chunk empty."""
+    shared-memory backward's grid (pairs × chunks) fills the card; returns
+    (chunks, images per chunk), no chunk empty."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     want = max(1, min(imgs, math.ceil(sms * _BWD_BLOCKS_PER_SM / pairs)))
     per = math.ceil(imgs / want)
@@ -201,13 +342,14 @@ def _chunks(device, pairs: int, imgs: int) -> tuple[int, int]:
 
 
 def biased_attention_bwd_cuda(q, k, v, bias, dout, vecs, scale, robust=False,
-                              iters=3, final_row=True, nw=1, no_bias=False):
-    """Launch the backward kernel (and the kernel that sums the dbias
-    partials); returns ``(dq, dk, dv, dbias)`` like the plain version."""
+                              iters=3, final_row=True, nw=1, no_bias=False, branch=None):
+    """Launch the backward kernel of the branch, as the forward (and the
+    kernel that sums the dbias partials); returns ``(dq, dk, dv, dbias)``
+    like the plain version."""
     from .build import load_library
 
     nw = 1 if no_bias else nw
-    _check(q, k, v, bias, nw, iters, no_bias)
+    chosen = _check(q, k, v, bias, nw, robust, iters, no_bias, branch)
     bw, h, n, d = q.shape
     dv_dim = v.shape[-1]
     if (dout.device != q.device or dout.dtype != q.dtype or dout.shape != v.shape
@@ -220,22 +362,29 @@ def biased_attention_bwd_cuda(q, k, v, bias, dout, vecs, scale, robust=False,
         raise ValueError("biased attention kernel: vecs must be a contiguous "
                          f"float32 [{bw}, {h}, {r}, {n}] tensor")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    chunks, per = _chunks(q.device, nw * h, bw // nw)
+    if chosen == "resident":
+        chunks, per = _res_walk(q, v, nw, robust, iters, True)
+    else:
+        chunks, per = _chunks(q.device, nw * h, bw // nw)
     dbias = partial = None
     if not no_bias:
         dbias = torch.empty(nw, h, n, n, dtype=torch.float32, device=q.device)
         if chunks > 1:
             partial = torch.empty(chunks, nw, h, n, n, dtype=torch.float32,
                                   device=q.device)
+    ptrs = (ptr(q), ptr(k), ptr(v), ptr(None if no_bias else bias), ptr(dout), ptr(vecs),
+            ptr(dq), ptr(dk), ptr(dv), ptr(partial), ptr(dbias))
+    cfg = (float(scale), int(robust), int(iters), int(final_row), chunks, per)
     lib = load_library()
     with torch.cuda.device(q.device):
-        err = lib.nrv_biased_attention_bwd(
-            ptr(q), ptr(k), ptr(v), ptr(None if no_bias else bias), ptr(dout),
-            ptr(vecs), ptr(dq), ptr(dk), ptr(dv), ptr(partial), ptr(dbias),
-            _DTYPE_CODES[q.dtype], bw, h, n, d, dv_dim, nw, float(scale), int(robust),
-            int(iters), int(final_row), chunks, per, stream(q.device))
-    raise_on(err, "biased attention backward kernel")
-    launches.bwd += 1
+        if chosen == "resident":
+            err = lib.nrv_biased_resident_bwd(*ptrs, bw, h, n, d, dv_dim, nw, *cfg,
+                                              stream(q.device))
+        else:
+            err = lib.nrv_biased_attention_bwd(*ptrs, _DTYPE_CODES[q.dtype], bw, h, n, d,
+                                               dv_dim, nw, *cfg, stream(q.device))
+    raise_on(err, f"biased attention backward kernel ({chosen})")
+    _count(chosen, "bwd")
     return dq, dk, dv, dbias
 
 

@@ -61,6 +61,16 @@ _ENTRIES = {
         # N, D, DV, nW, scale, robust, iters, final_row, chunks, per_chunk,
         # stream
         [_VP] * 11 + [_I] * 7 + [_F] + [_I] * 5 + [_VP]),
+    # q, k, v, bias, out, vecs, BW, H, N, D, DV, nW, scale, robust, iters,
+    # final_row, chunks, per, stream (bf16)
+    "nrv_biased_resident_fwd": ([_VP] * 6 + [_I] * 6 + [_F] + [_I] * 5 + [_VP]),
+    # q, k, v, bias, dout, vecs, dq, dk, dv, partial, dbias, BW, H, N, D, DV,
+    # nW, scale, robust, iters, final_row, chunks, per, stream (bf16)
+    "nrv_biased_resident_bwd": ([_VP] * 11 + [_I] * 6 + [_F] + [_I] * 5 + [_VP]),
+    # N, D, DV, robust, iters
+    "nrv_biased_resident_fits": ([_I] * 5),
+    # N, D, DV, robust, iters, bwd
+    "nrv_biased_resident_blocks": ([_I] * 6),
     # logits, out, vecs, scratch, dtype, K, N, iters, final_row, blocks, stream
     "nrv_sinkhorn_softmax_fwd": ([_VP] * 4 + [_I] * 6 + [_VP]),
     # logits, g, vecs, ds, scratch, dtype, K, N, iters, final_row, blocks,

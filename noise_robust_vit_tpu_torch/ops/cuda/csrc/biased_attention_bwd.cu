@@ -233,6 +233,15 @@ __global__ void biased_dbias_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
+// The chunks' dbias partials [chunks, elems] summed in chunk order into
+// dbias [elems]; the resident backward (biased_resident_bwd.cu) uses it too.
+cudaError_t biased_dbias_reduce(const float* partial, float* dbias, size_t elems, int chunks,
+                                cudaStream_t stream) {
+  const int blocks = (int)((elems + 255) / 256 < 4096 ? (elems + 255) / 256 : 4096);
+  biased_dbias_reduce_kernel<<<blocks, 256, 0, stream>>>(partial, dbias, elems, chunks);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_biased_bwd(const void* q, const void* k, const void* v, const void* bias,
                       const void* dout, const void* vecs, void* dq, void* dk, void* dv,
@@ -263,12 +272,8 @@ int launch_biased_bwd(const void* q, const void* k, const void* v, const void* b
       robust, iters, final_row, per_chunk);
   err = cudaGetLastError();
   if (err != cudaSuccess || !bias || chunks == 1) return (int)err;
-  const size_t elems = (size_t)nW * H * N * N;
-  const int blocks = (int)((elems + 255) / 256 < 4096 ? (elems + 255) / 256 : 4096);
-  biased_dbias_reduce_kernel<<<blocks, 256, 0, stream>>>(static_cast<const float*>(partial),
-                                                        static_cast<float*>(dbias), elems,
-                                                        chunks);
-  return (int)cudaGetLastError();
+  return (int)biased_dbias_reduce(static_cast<const float*>(partial), static_cast<float*>(dbias),
+                                  (size_t)nW * H * N * N, chunks, stream);
 }
 
 }  // namespace nrv

@@ -8,8 +8,11 @@ row); the JAX side runs ``biased_attention`` in interpret mode, as
 tolerances: forward atol 2e-6 / rtol 2e-5, dq, dk, dv and dbias atol 5e-6 /
 rtol 5e-5, float32. Both get the same numpy inputs.
 
-The ``gpu`` cases compare the CUDA kernels with the plain versions on the
-card and skip where there is none. JAX is imported only by the tests that
+The branch rule (``biased_branch``: the resident kernels for bf16 at N ≤
+64 and D, DV in 16, 32, 64, the shared-memory kernels for the rest of the
+gate) is checked here on the CPU. The ``gpu`` cases compare either
+branch's CUDA kernels with the plain versions on the card, and the rule
+with the library's, and skip where there is none. JAX is imported only by the tests that
 compare with it, so the file also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_biased_attention.py -m gpu
@@ -164,6 +167,102 @@ def test_gate(shape, iters, ok):
     assert biased_dispatch(False, *shape, iters) is False
 
 
+@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+def test_plain_matches_jax_kernel_at_levit_128s_stage_2(jx, mode):
+    """LeViT-128S's stage 2 at batch 2: 8 heads at N = 16, D 16, DV 32, one
+    per-head bias (the resident kernels' one-warp items)."""
+    robust, iters, final_row = mode
+    shape = (2, 8, 16, 16, 32, 1)
+    q, k, v, bias, tang = _inputs(10, *shape)
+    out_j, grads_j = _jax_fwd_grads(jx, q, k, v, bias, tang, 1, robust, iters, final_row)
+    out_t, grads_t = _torch_fwd_grads(q, k, v, bias, tang, 1, robust, iters, final_row)
+    np.testing.assert_allclose(out_t, out_j, atol=2e-6, rtol=2e-5)
+    for name, a, b in zip(["dq", "dk", "dv", "dbias"], grads_t, grads_j):
+        np.testing.assert_allclose(a, b, atol=5e-6, rtol=5e-5, err_msg=name)
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+# (label, N, D, DV): the callers the resident kernels serve
+RESIDENT_SITES = [("swin_t", 49, 32, 32), ("swin_v2_t", 64, 32, 32),
+                  ("levit_128s stage 1", 49, 16, 32), ("levit_128s stage 2", 16, 16, 32),
+                  ("levit_256 stage 1", 49, 32, 64), ("levit_256 stage 2", 16, 32, 64),
+                  ("twins local", 49, 64, 64)]
+# (label, N, D, DV, dtype): what stays on the shared-memory kernels
+SHARED_SITES = [("swin_t float32", 49, 32, 32, F32), ("N 65", 65, 32, 32, BF16),
+                ("levit stage 0", 196, 16, 32, BF16), ("levit_256 stage 0", 196, 32, 64, BF16),
+                ("D 8", 49, 8, 8, BF16), ("D 128", 49, 128, 128, BF16),
+                ("DV 40", 49, 32, 40, BF16)]
+SCHEDULES = [(False, 3)] + [(True, i) for i in range(1, 9)]
+
+
+def _schedule_id(s):
+    return f"r{s[1]}" if s[0] else "vanilla"
+
+
+@pytest.mark.parametrize("schedule", SCHEDULES, ids=_schedule_id)
+@pytest.mark.parametrize("site", RESIDENT_SITES, ids=lambda s: s[0])
+def test_branch_rule_takes_the_windowed_sites(site, schedule):
+    """bf16 Swin-T, swin_v2_t, LeViT's N = 49 and 16 stages and Twins' local
+    attention go to the resident kernels, vanilla and robust at 1 to 8
+    iterations."""
+    _, n, d, dv = site
+    assert ba.biased_branch(n, d, dv, BF16, *schedule) == "resident"
+
+
+@pytest.mark.parametrize("schedule", [(False, 3), (True, 1), (True, 8)], ids=_schedule_id)
+@pytest.mark.parametrize("site", SHARED_SITES, ids=lambda s: s[0])
+def test_branch_rule_keeps_the_rest_on_shared_memory(site, schedule):
+    """float32, N above 64, and widths outside 16, 32, 64 stay on the
+    shared-memory kernels."""
+    _, n, d, dv, dtype = site
+    assert ba.biased_branch(n, d, dv, dtype, *schedule) == "shared"
+
+
+def test_branch_rule_beyond_eight_iterations():
+    assert ba.biased_branch(49, 32, 32, BF16, True, 9) == "shared"
+    assert not ba._resident_fits(49, 32, 32, True, 9)
+
+
+@pytest.mark.parametrize("iters", range(1, 9))
+def test_resident_shapes_lie_inside_the_gate(iters):
+    """The resident branch takes a subset of the gate's shapes, every N from
+    1 to 64 at every width pair: the gate itself is unchanged, and a shape
+    the rule calls resident has a kernel in either branch."""
+    for n in range(1, 65):
+        for d in (16, 32, 64):
+            for dv in (16, 32, 64):
+                assert ba._resident_fits(n, d, dv, True, iters)
+                assert ba._resident_fits(n, d, dv, False, iters)
+                assert ba.biased_attention_supported(8, 2, n, d, dv, 2, iters)
+    assert not ba._resident_fits(65, 32, 32, True, iters)
+    assert [ba._res_items(n) for n in (1, 16, 17, 32, 33, 49, 64)] == [4, 4, 2, 2, 1, 1, 1]
+
+
+@pytest.mark.parametrize("imgs,pairs,slots", [(128, 192, 396), (32, 96, 528), (128, 24, 396),
+                                              (1, 24, 528), (8192, 8, 396), (7, 3, 5)])
+def test_resident_walk_covers_every_image_once(imgs, pairs, slots):
+    """The resident walk cuts each bias row's images into chunks, none empty,
+    that cover every image once; it ends no later than the walk of whole
+    rows or of one image a unit (a unit's start counted as half an image)."""
+    chunks, per = ba._res_chunks(imgs, pairs, slots)
+    assert chunks * per >= imgs and (chunks - 1) * per < imgs
+    assert sorted(c * per + i for c in range(chunks) for i in range(per)
+                  if c * per + i < imgs) == list(range(imgs))
+
+    def cost(c, p):
+        return -(-(c * pairs) // slots) * (p + ba._RES_UNIT_COST)
+    assert cost(chunks, per) <= min(cost(1, imgs), cost(imgs, 1))
+
+
+def test_resident_walk_at_swin_t_stage_0():
+    """Swin-T stage 0 at batch 128 (128 images share each of 64 × 3 bias
+    rows) on 132 SMs: the backward's three one-item blocks an SM (396
+    slots) take 2 chunks of 64 images, 384 units; the forward's four (528
+    slots) 8 chunks of 16, 1536 units."""
+    assert ba._res_chunks(128, 192, 396) == (2, 64)
+    assert ba._res_chunks(128, 192, 528) == (8, 16)
+
+
 def test_cuda_wrapper_refuses_cpu_tensor():
     q = torch.zeros(1, 1, 4, 16)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -244,14 +343,16 @@ def test_kernel_no_bias_matches_plain(cuda, mode):
 
 @pytest.mark.gpu
 def test_dbias_repeats_bit_for_bit(cuda):
-    """Many images per bias row, so the backward sums partials from several
-    chunks: two runs give the same bits (no atomics)."""
+    """Many images per bias row, so the shared-memory backward (forced here:
+    the rule gives bf16 at N = 49 to the resident kernels, whose repeats
+    test_resident_branch_repeats_bit_for_bit checks) sums partials from
+    several chunks: two runs give the same bits (no atomics)."""
     ts = _card_inputs(8, (1024, 3, 49, 32, 32, 4), cuda, torch.bfloat16)
     q, k, v, bias, g = ts
     args = (32**-0.5, True, 3, True, 4, False)
-    _, vecs = ba.biased_attention_fwd_cuda(q, k, v, bias, *args)
-    first = ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs, *args)[3]
-    again = ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs, *args)[3]
+    _, vecs = ba.biased_attention_fwd_cuda(q, k, v, bias, *args, branch="shared")
+    first = ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs, *args, branch="shared")[3]
+    again = ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs, *args, branch="shared")[3]
     assert ba._chunks(cuda, 4 * 3, 256)[0] > 1
     assert torch.equal(first, again)
 
@@ -273,3 +374,154 @@ def test_autograd_on_card_launches_kernels(cuda, robust):
     np.testing.assert_allclose(out.detach().cpu().numpy(), want[0], atol=1e-4, rtol=1e-3)
     for t, w in zip(ts, want[1]):
         np.testing.assert_allclose(t.grad.cpu().numpy(), w, atol=1e-4, rtol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# on the card: the two branches
+# --------------------------------------------------------------------------
+
+# (BW, H, N, D, DV, nW): Swin-T's stage 0 and 3 windows, swin_v2_t's N = 64,
+# LeViT-128S's stages 1 and 2, LeViT-256's stage 1, a three-strip item
+RESIDENT_SHAPES = [(64, 3, 49, 32, 32, 16), (16, 24, 49, 32, 32, 1), (16, 3, 64, 32, 32, 4),
+                   (32, 6, 49, 16, 32, 1), (32, 8, 16, 16, 32, 1), (16, 6, 49, 32, 64, 1),
+                   (8, 2, 40, 64, 16, 2)]
+ALL_MODES = MODES + [(True, 4, True), (True, 1, True), (True, 1, False), (True, 8, True)]
+
+
+def _mode_id(m):
+    return f"r{m[1]}{'f' if m[2] else ''}" if m[0] else "vanilla"
+
+
+def _branch_vs_plain(ts, nw, mode, no_bias=False, fwd_branch=None, bwd_branch=None):
+    q, k, v, bias, g = ts
+    args = (q.shape[-1] ** -0.5, *mode, nw, no_bias)
+    out_k, vecs_k = ba.biased_attention_fwd_cuda(q, k, v, bias, *args, branch=fwd_branch)
+    grads_k = ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs_k, *args, branch=bwd_branch)
+    out_p, vecs_p = ba.biased_attention_fwd_plain(q, k, v, bias, *args)
+    grads_p = ba.biased_attention_bwd_plain(q, k, v, bias, g, vecs_p, *args)
+    torch.cuda.synchronize()
+    return (out_k, vecs_k, *grads_k), (out_p, vecs_p, *grads_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ALL_MODES, ids=_mode_id)
+@pytest.mark.parametrize("shape", RESIDENT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_resident_branch_matches_plain(cuda, shape, mode):
+    """bf16 at the windowed models' shapes: the rule picks the resident
+    kernels, which launch (and no shared-memory kernel) and agree with the
+    plain versions to one bf16 ulp."""
+    ts = _card_inputs(20, shape, cuda, torch.bfloat16)
+    assert ba.biased_branch(*shape[2:5], torch.bfloat16, mode[0], mode[1]) == "resident"
+    for c in (ba.launches_resident, ba.launches_shared):
+        c.reset()
+    _assert_kernel_matches(*_branch_vs_plain(ts, shape[-1], mode))
+    assert (ba.launches_resident.fwd, ba.launches_resident.bwd) == (1, 1)
+    assert (ba.launches_shared.fwd, ba.launches_shared.bwd) == (0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES, ids=_mode_id)
+def test_resident_branch_without_bias(cuda, mode):
+    """Twins' local attention: D = DV = 64, no bias, no dbias."""
+    ts = _card_inputs(21, (32, 8, 49, 64, 64, 1), cuda, torch.bfloat16)
+    got, want = _branch_vs_plain(ts, 1, mode, no_bias=True, fwd_branch="resident",
+                                 bwd_branch="resident")
+    assert got[5] is None
+    _assert_kernel_matches(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", range(1, 65))
+def test_resident_branch_at_ragged_n(cuda, n):
+    """Every N from 1 to 64: padded rows and columns masked, items of one to
+    four warps."""
+    ts = _card_inputs(22, (6, 2, n, 16, 32, 3), cuda, torch.bfloat16)
+    _assert_kernel_matches(*_branch_vs_plain(ts, 3, (True, 3, True), fwd_branch="resident",
+                                             bwd_branch="resident"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES[:2], ids=_mode_id)
+@pytest.mark.parametrize("shape", [(64, 3, 49, 32, 32, 16), (1024, 3, 49, 32, 32, 4),
+                                   (64, 8, 16, 16, 32, 1)], ids=lambda s: "x".join(map(str, s)))
+def test_resident_branch_repeats_bit_for_bit(cuda, shape, mode):
+    """Column sums over an item's warps run in strip order and dbias adds
+    each unit's images in image order, its chunks in chunk order (several
+    chunks at 256 images a bias row): two runs give the same bits."""
+    ts = _card_inputs(23, shape, cuda, torch.bfloat16)
+    first = _branch_vs_plain(ts, shape[-1], mode)[0]
+    again = _branch_vs_plain(ts, shape[-1], mode)[0]
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    if shape[0] == 1024:
+        assert ba._res_walk(ts[0], ts[2], shape[-1], mode[0], mode[1], True)[0] > 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fwd_branch,bwd_branch", [("resident", "shared"), ("shared", "resident")])
+def test_branches_share_the_residual_rows(cuda, fwd_branch, bwd_branch):
+    """Either branch's forward feeds either branch's backward: the residual
+    rows are the same."""
+    ts = _card_inputs(24, (64, 3, 49, 32, 32, 16), cuda, torch.bfloat16)
+    _assert_kernel_matches(*_branch_vs_plain(ts, 16, (True, 3, True), False, fwd_branch,
+                                             bwd_branch))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES, ids=_mode_id)
+def test_shared_branch_forced_in_bf16(cuda, mode):
+    """The shared-memory kernels still take bf16 at Swin-T's shape when asked."""
+    ts = _card_inputs(25, (64, 3, 49, 32, 32, 16), cuda, torch.bfloat16)
+    for c in (ba.launches_resident, ba.launches_shared):
+        c.reset()
+    _assert_kernel_matches(*_branch_vs_plain(ts, 16, mode, fwd_branch="shared",
+                                             bwd_branch="shared"))
+    assert (ba.launches_shared.fwd, ba.launches_shared.bwd) == (1, 1)
+    assert (ba.launches_resident.fwd, ba.launches_resident.bwd) == (0, 0)
+
+
+@pytest.mark.gpu
+def test_branch_rule_matches_library(cuda):
+    """The Python rule and the library's (nrv_biased_resident_fits) agree."""
+    from noise_robust_vit_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    for n in range(1, 81):
+        for d in (8, 16, 32, 40, 64, 128):
+            for dv in (8, 16, 32, 40, 64, 128):
+                for robust, iters in ((False, 3), (True, 1), (True, 3), (True, 8), (True, 9)):
+                    assert bool(lib.nrv_biased_resident_fits(n, d, dv, int(robust), iters)) == \
+                        ba._resident_fits(n, d, dv, robust, iters), (n, d, dv, robust, iters)
+
+
+@pytest.mark.gpu
+def test_resident_branch_refuses_what_it_does_not_take(cuda):
+    for shape, dtype in (((4, 2, 49, 32, 32, 1), torch.float32),
+                         ((4, 2, 49, 8, 8, 1), torch.bfloat16),
+                         ((4, 2, 196, 16, 32, 1), torch.bfloat16)):
+        q, k, v, bias, _ = _card_inputs(26, shape, cuda, dtype)
+        with pytest.raises(ValueError, match="resident branch"):
+            ba.biased_attention_fwd_cuda(q, k, v, bias, 0.25, True, branch="resident")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,want", [("swin_t", ((12, 12), (0, 0))),
+                                       ("levit", ((7, 7), (2, 2))),
+                                       ("LeViT_256", ((8, 8), (4, 4)))])
+def test_robust_step_launch_split(cuda, name, want):
+    """A robust bf16 forward and backward launches the resident kernels at
+    every N ≤ 64 site and the shared-memory ones at N = 196: Swin-T 12 and 0
+    each way, LeViT-128S 7 and 2, LeViT-256 8 and 4; a vanilla one neither."""
+    from noise_robust_vit_tpu_torch import create_model
+
+    x = torch.from_numpy(np.random.default_rng(27).standard_normal(
+        (2, 224, 224, 3), dtype=np.float32)).to(cuda, torch.bfloat16)
+    for robust in (True, False):
+        model = create_model(name, num_classes=10, robust=robust, dtype=torch.bfloat16,
+                             device=cuda, seed=0)
+        for c in (ba.launches_resident, ba.launches_shared):
+            c.reset()
+        model(x).float().square().sum().backward()
+        torch.cuda.synchronize()
+        got = ((ba.launches_resident.fwd, ba.launches_resident.bwd),
+               (ba.launches_shared.fwd, ba.launches_shared.bwd))
+        assert got == (want if robust else ((0, 0), (0, 0)))
