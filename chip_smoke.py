@@ -52,11 +52,15 @@ Phases, one line each (or a few):
               and d post (d pre and d post, sums over every image and entry,
               to 1e-4 of their largest magnitude in float32, 1e-3 in
               bfloat16), and the bits of two runs at CaiT's shape; the
-              streaming kernels against theirs at CvT-13's stage 1
-              [128, 1, 3136 | 784, 64] and stage 2 [128, 3, 784 | 196, 64]
-              bf16 and a ragged float32 [2, 2, 300 | 130, 24], (3, final),
+              streaming kernels of both branches against theirs at CvT-13's
+              stage 1 [128, 1, 3136 | 784, 64], stage 2 [128, 3, 784 | 196,
+              64] and Twins-SVT-S's stage-1 global [16, 8, 3136 | 64, 64]
+              bf16 (the split branch by the rule, the tile branch forced),
+              and a ragged float32 [2, 2, 300 | 130, 24] (tile), (3, final),
               (4, no final) and (1, final), out, residual vectors, dq, dk, dv,
-              and the bits of two runs at stage 1; the fused q/k/v branch
+              each call's branch by its launch counts, the bits of two runs
+              at every bf16 check of the split branch and of the tile branch
+              at stage 1 (3, final); the fused q/k/v branch
               rule, Python's formula against the library's at every N ≤ 300;
               the fused q/k/v kernels against theirs at MobileViT-XS's three
               stages [2048, 256 | 64 | 16, 8] (512 sequences × 4 heads of 8)
@@ -90,10 +94,11 @@ Phases, one line each (or a few):
               launches each way); 5 + 5 steps of CaiT @224 bf16 at batch 64
               (6 talking-heads launches each way a robust step, 0 square and
               0 rect; none vanilla); small CvT f32 robust at 112 px card vs
-              cpu in train mode (stage 1 streams: 1 streaming and 2 rect
-              launches each way); 5 + 5 steps of CvT-13 @224 bf16 at batch 64
-              (3 streaming and 10 rect launches each way a robust step, 0
-              square, 0 biased; none vanilla); small MobileViT f32 robust at
+              cpu in train mode (stage 1 streams: 1 streaming launch each
+              way, on the tile branch, and 2 rect); 5 + 5 steps of CvT-13
+              @224 bf16 at batch 64 (3 streaming launches each way a robust
+              step, all on the split branch, and 10 rect, 0 square, 0
+              biased; none vanilla); small MobileViT f32 robust at
               128 px card vs cpu in train mode (3 fused launches each way, on
               the recompute branch); 5 + 5 steps of MobileViT-XS @256 bf16 at
               batch 64 (9 fused launches each way a robust step, all on the
@@ -125,9 +130,11 @@ Phases, one line each (or a few):
               with torch.softmax as the vanilla counterpart, the
               talking-heads kernels at CaiT's [128, 8, 196, 196] f32 beside
               the vanilla sandwich (einsum, torch.softmax, einsum), and the
-              streaming kernels at CvT-13's stages 1 and 2 bf16 beside their
-              plain versions, the vector form and
-              scaled_dot_product_attention; the fused kernels at MobileViT-XS's
+              streaming kernels at CvT-13's stages 1 and 2 bf16, the split
+              and the tile branch in turns (the split ones must be faster),
+              beside their plain versions, the vector form,
+              scaled_dot_product_attention, the bound and the sweep floor;
+              the fused kernels at MobileViT-XS's
               three stages bf16, robust and vanilla, the resident and the
               recompute branch in turns in the same call (at stage 1 the
               resident ones must be faster), beside their plain versions and
@@ -1379,13 +1386,20 @@ def phase_th_times(th, torch, dev, shape=CAIT_TH):
 
 
 # The streaming kernels' checked shapes: CvT-13 @224 at batch 128, stage 1
-# and stage 2 (tools/dispatch_audit.jsonl), and a ragged float32 shape that
-# the TPU kernel pads on both sides; (label, (B, H, N, M, D), dtype)
+# and stage 2 (tools/dispatch_audit.jsonl), Twins-SVT-S's stage-1 global
+# attention at batch 16 (8 heads, 3136 queries against 64 subsampled keys),
+# and a ragged float32 shape that the TPU kernel pads on both sides; (label,
+# (B, H, N, M, D), dtype). The bf16 D = 64 shapes are checked on both
+# branches (split by the rule, tile forced), the float32 one on the tile
+# branch, which alone takes it.
 CVT_S1 = (128, 1, 3136, 784, 64)
 CVT_S2 = (128, 3, 784, 196, 64)
+TWINS_S1 = (16, 8, 3136, 64, 64)
 STREAM_SHAPES = [("cvt stage 1", CVT_S1, "bfloat16"), ("cvt stage 2", CVT_S2, "bfloat16"),
+                 ("twins-svt-s stage 1", TWINS_S1, "bfloat16"),
                  ("ragged", (2, 2, 300, 130, 24), "float32")]
 STREAM_MODES = [(3, True), (4, False), (1, True)]
+STREAM_BRANCHES = ("split", "tile")
 
 
 def stream_inputs(torch, dev, rng, shape, dtype):
@@ -1396,64 +1410,88 @@ def stream_inputs(torch, dev, rng, shape, dtype):
     return q, k, v, g
 
 
-def stream_pairs(sa, torch, q, k, v, g, iters, final_row):
-    """(kernel, plain) results of the streaming kernels on the same inputs:
-    out, av, bv, dq, dk, dv."""
+def stream_kernels(sa, torch, q, k, v, g, iters, final_row, branch):
+    """The streaming kernels of ``branch`` on these inputs: out, av, bv,
+    dq, dk, dv."""
     scale = q.shape[-1] ** -0.5
-    got = sa.streaming_attention_fwd_cuda(q, k, v, scale, iters, final_row)
-    got = (*got, *sa.streaming_attention_bwd_cuda(q, k, v, g, *got[1:], scale, iters, final_row))
+    got = sa.streaming_attention_fwd_cuda(q, k, v, scale, iters, final_row, branch=branch)
+    got = (*got, *sa.streaming_attention_bwd_cuda(q, k, v, g, *got[1:], scale, iters, final_row,
+                                                  branch=branch))
     torch.cuda.synchronize()
+    return got
+
+
+def stream_plain(sa, torch, q, k, v, g, iters, final_row):
+    """The plain versions' out, av, bv, dq, dk, dv."""
+    scale = q.shape[-1] ** -0.5
     want = sa.streaming_attention_fwd_plain(q, k, v, scale, iters, final_row)
     want = (*want, *sa.streaming_attention_bwd_plain(q, k, v, g, *want[1:], scale, iters,
                                                      final_row))
     torch.cuda.synchronize()
-    return got, want
+    return want
 
 
 def phase_stream_kernels(sa, torch, dev):
-    """Streaming kernels against their plain versions at STREAM_SHAPES,
-    (3, final), (4, no final) and (1, final): out, the residual vectors
-    (lse and a, b), dq, dk and dv. float32: atol 1e-4, rtol 1e-3 (the sums
-    run in another order and the reverse chain amplifies it); bfloat16 q, k,
-    v (math in float32): out atol 2e-2 (one bf16 rounding of values of
-    order one), dq, dk, dv atol and rtol 2e-2, the float32 residual vectors
-    atol and rtol 1e-3. Then two runs at CvT stage 1 give the same bits.
-    Returns the largest errors at CvT's stages 1 and 2, (3, final): fwd
-    (out), bwd (dq, dk, dv)."""
-    worst = {"fwd": 0.0, "bwd": 0.0}
+    """Streaming kernels of both branches against their plain versions at
+    STREAM_SHAPES, (3, final), (4, no final) and (1, final): out, the
+    residual vectors (lse and a, b), dq, dk and dv. float32: atol 1e-4,
+    rtol 1e-3 (the sums run in another order and the reverse chain
+    amplifies it); bfloat16 q, k, v (math in float32): out atol 2e-2 (one
+    bf16 rounding of values of order one), dq, dk, dv atol and rtol 2e-2,
+    the float32 residual vectors atol and rtol 1e-3. Every bf16 check of
+    the split branch runs twice and must give the same bits; so does the
+    tile branch at CvT stage 1, (3, final). Each call's branch is checked
+    by its launch counts. Returns the largest errors of each branch at
+    CvT's stages 1 and 2, (3, final): fwd (out), bwd (dq, dk, dv)."""
+    worst = {b: {"fwd": 0.0, "bwd": 0.0} for b in STREAM_BRANCHES}
     rng = np.random.default_rng(40)
     names = ["out", "av", "bv", "dq", "dk", "dv"]
     for label, shape, dname in STREAM_SHAPES:
         dtype = getattr(torch, dname)
         bf16 = dtype == torch.bfloat16
+        b, h, n, m, d = shape
+        rule = sa.streaming_branch(n, m, d, dtype)
+        branches = STREAM_BRANCHES if rule == "split" else ("tile",)
         q, k, v, g = stream_inputs(torch, dev, rng, shape, dtype)
         for iters, final_row in STREAM_MODES:
-            got, want = stream_pairs(sa, torch, q, k, v, g, iters, final_row)
-            errs = {nm: (a.float() - b.float()).abs().max().item()
-                    for nm, a, b in zip(names, got, want)}
-            log(f"kernels: streaming {label} {dname} {list(shape)} iters={iters} "
-                f"final_row={int(final_row)} max_abs_err "
-                + " ".join(f"{nm}={e:.3g}" for nm, e in errs.items()))
-            for nm, a, b in zip(names, got, want):
-                if nm in ("av", "bv"):
-                    torch.testing.assert_close(a, b, atol=1e-3 if bf16 else 1e-4, rtol=1e-3,
-                                               msg=nm)
-                elif bf16:
-                    torch.testing.assert_close(a.float(), b.float(), atol=2e-2,
-                                               rtol=0 if nm == "out" else 2e-2, msg=nm)
-                else:
-                    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=nm)
-            if label.startswith("cvt") and (iters, final_row) == (3, True):
-                worst["fwd"] = max(worst["fwd"], errs["out"])
-                worst["bwd"] = max(worst["bwd"], errs["dq"], errs["dk"], errs["dv"])
-                if shape == CVT_S1:
-                    again = stream_pairs(sa, torch, q, k, v, g, iters, final_row)[0]
-                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                        raise RuntimeError("streaming: two runs gave different bits")
-                    log(f"kernels: streaming {list(shape)} {dname}: two runs give the same "
-                        f"bits (out, av, bv, dq, dk, dv)")
+            want = stream_plain(sa, torch, q, k, v, g, iters, final_row)
+            for branch in branches:
+                counter = sa.launches_split if branch == "split" else sa.launches_tile
+                counter.reset()
+                got = stream_kernels(sa, torch, q, k, v, g, iters, final_row, branch)
+                if (counter.fwd, counter.bwd) != (1, 1):
+                    raise RuntimeError(f"streaming {branch}: launches {counter.fwd}/"
+                                       f"{counter.bwd}, expected 1/1")
+                errs = {nm: (a.float() - c.float()).abs().max().item()
+                        for nm, a, c in zip(names, got, want)}
+                log(f"kernels: streaming {branch} {label} {dname} {list(shape)} iters={iters} "
+                    f"final_row={int(final_row)} max_abs_err "
+                    + " ".join(f"{nm}={e:.3g}" for nm, e in errs.items()))
+                for nm, a, c in zip(names, got, want):
+                    if nm in ("av", "bv"):
+                        torch.testing.assert_close(a, c, atol=1e-3 if bf16 else 1e-4, rtol=1e-3,
+                                                   msg=nm)
+                    elif bf16:
+                        torch.testing.assert_close(a.float(), c.float(), atol=2e-2,
+                                                   rtol=0 if nm == "out" else 2e-2, msg=nm)
+                    else:
+                        torch.testing.assert_close(a, c, atol=1e-4, rtol=1e-3, msg=nm)
+                main = label.startswith("cvt") and (iters, final_row) == (3, True)
+                if main:
+                    w = worst[branch]
+                    w["fwd"] = max(w["fwd"], errs["out"])
+                    w["bwd"] = max(w["bwd"], errs["dq"], errs["dk"], errs["dv"])
+                if (branch == "split" and bf16) or (main and shape == CVT_S1):
+                    again = stream_kernels(sa, torch, q, k, v, g, iters, final_row, branch)
+                    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                        raise RuntimeError(f"streaming {branch} {label}: two runs gave "
+                                           f"different bits")
+                    log(f"kernels: streaming {branch} {label} iters={iters} "
+                        f"final_row={int(final_row)}: two runs give the same bits (out, av, "
+                        f"bv, dq, dk, dv)")
                     del again
-            del got, want
+                del got
+            del want
         del q, k, v, g
         torch.cuda.empty_cache()
     return worst
@@ -1470,8 +1508,9 @@ def phase_small_cvt(sa, ss, torch, dev):
     kernels ([4, 1, 196, 49], [4, 2, 49, 16]), on the card against the same
     weights on the CPU, in train mode: logits, every parameter gradient and
     the BN running statistics after the step (atol 1e-4, rtol 1e-3, as
-    LeViT's). Every parameter is perturbed from a seed. 1 streaming and 2
-    rect launches each way on the card, none on the CPU."""
+    LeViT's). Every parameter is perturbed from a seed. 1 streaming (on the
+    tile branch, which takes float32) and 2 rect launches each way on the
+    card, none on the CPU. Returns the tile branch's launches."""
     from noise_robust_vit_tpu_torch import CvT
 
     gen = torch.Generator().manual_seed(41)
@@ -1487,18 +1526,19 @@ def phase_small_cvt(sa, ss, torch, dev):
     outs = []
     for model, xx, yy in ((cpu, x, y), (gpu, x.to(dev), y.to(dev))):
         model.train()
-        sa.launches.reset()
-        ss.launches_rect.reset()
+        for c in (sa.launches, sa.launches_tile, ss.launches_rect):
+            c.reset()
         logits = model(xx)
         torch.nn.functional.cross_entropy(logits.float(), yy).backward()
         outs.append((logits.detach().cpu(),
                      {k: p.grad.cpu() for k, p in model.named_parameters()},
                      {k: b.cpu() for k, b in model.named_buffers()},
                      (sa.launches.fwd, sa.launches.bwd, ss.launches_rect.fwd,
-                      ss.launches_rect.bwd)))
-    if outs[0][3] != (0, 0, 0, 0) or outs[1][3] != (1, 1, 2, 2):
-        raise RuntimeError(f"small cvt: launches (streaming fwd, bwd, rect fwd, bwd) cpu "
-                           f"{outs[0][3]}, card {outs[1][3]}, expected 0s and (1, 1, 2, 2)")
+                      ss.launches_rect.bwd, sa.launches_tile.fwd, sa.launches_tile.bwd)))
+    if outs[0][3] != (0,) * 6 or outs[1][3] != (1, 1, 2, 2, 1, 1):
+        raise RuntimeError(f"small cvt: launches (streaming fwd, bwd, rect fwd, bwd, streaming "
+                           f"tile fwd, bwd) cpu {outs[0][3]}, card {outs[1][3]}, expected 0s "
+                           f"and (1, 1, 2, 2, 1, 1)")
     torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-3)
     for i in (1, 2):
         for k, v in outs[0][i].items():
@@ -1507,32 +1547,59 @@ def phase_small_cvt(sa, ss, torch, dev):
     err_bn = max((outs[1][2][k] - v).abs().max().item() for k, v in outs[0][2].items())
     log(f"slice: small CvT f32 robust 112 px train mode card vs cpu: logits, grads and BN "
         f"running stats agree (max grad err {err:.3g}, stats {err_bn:.3g}), launches "
-        f"streaming 1/1, rect 2/2 on the card, 0 on the cpu")
+        f"streaming 1/1 (tile branch: float32), rect 2/2 on the card, 0 on the cpu")
+    return {"fwd": outs[1][3][4], "bwd": outs[1][3][5]}
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def stream_sweep_floor(items, n, m, d, sweeps, clock_mhz):
+    """The least time of `sweeps` passes that each recompute q·kᵀ (at the
+    dense bf16 peak) and one exponential an entry (16 a clock on each of
+    132 SMs' special-function units), ms."""
+    entries = items * n * m
+    return sweeps * (2 * entries * d / PEAK_BF16 + entries / (16 * 132 * clock_mhz * 1e6)) * 1e3
 
 
 def phase_stream_times(sa, torch, dev):
-    """Streaming kernels at CvT-13's stage-1 and stage-2 q/k/v (batch 128,
-    bf16), robust (3, final), beside their plain versions, the vector form
-    (float32 logits → ops.sinkhorn_attention → attn·v, its backward through
-    autograd) and scaled_dot_product_attention (vanilla softmax, backward
-    through autograd: the library yardstick). Each bound comes from these
-    inputs: the bytes each direction must move once, q·kᵀ and attn·v
-    counted once (attention_work with n queries and m keys)."""
+    """Streaming kernels of both branches at CvT-13's stage-1 and stage-2
+    q/k/v (batch 128, bf16), robust (3, final), in turns (split, tile,
+    tile, split; each branch's time the mean of its two turns), beside the
+    plain versions, the vector form (float32 logits → ops.sinkhorn_attention
+    → attn·v, its backward through autograd) and scaled_dot_product_attention
+    (vanilla softmax, backward through autograd: the library yardstick).
+    Each bound comes from these inputs: the bytes each direction must move
+    once, q·kᵀ and attn·v counted once (attention_work with n queries and m
+    keys); the sweep floor beside it counts every sweep's q·kᵀ and
+    exponentials (iters + 1 sweeps forward, iters + 2 backward). Returns
+    {label: {branch: times}}."""
     from noise_robust_vit_tpu_torch import ops
 
     rng = np.random.default_rng(43)
+    clock = sm_clock_mhz()
     times = {}
     for label, shape in (("stage 1", CVT_S1), ("stage 2", CVT_S2)):
         b, h, n, m, d = shape
         q, k, v, g = stream_inputs(torch, dev, rng, shape, torch.bfloat16)
         scale = d ** -0.5
         _, av, bv = sa.streaming_attention_fwd_cuda(q, k, v, scale)
-        t = {"fwd": cuda_ms(lambda: sa.streaming_attention_fwd_cuda(q, k, v, scale), 10),
-             "fwd_plain": cuda_ms(lambda: sa.streaming_attention_fwd_plain(q, k, v, scale), 3),
-             "bwd": cuda_ms(lambda: sa.streaming_attention_bwd_cuda(q, k, v, g, av, bv, scale),
-                            10),
-             "bwd_plain": cuda_ms(
-                 lambda: sa.streaming_attention_bwd_plain(q, k, v, g, av, bv, scale), 3)}
+        turns = {br: {"fwd": [], "bwd": []} for br in STREAM_BRANCHES}
+        for br in ("split", "tile", "tile", "split"):
+            turns[br]["fwd"].append(cuda_ms(
+                lambda: sa.streaming_attention_fwd_cuda(q, k, v, scale, branch=br), 10))
+            turns[br]["bwd"].append(cuda_ms(
+                lambda: sa.streaming_attention_bwd_cuda(q, k, v, g, av, bv, scale, branch=br),
+                10))
+        common = {"fwd_plain": cuda_ms(lambda: sa.streaming_attention_fwd_plain(q, k, v, scale),
+                                       3),
+                  "bwd_plain": cuda_ms(
+                      lambda: sa.streaming_attention_bwd_plain(q, k, v, g, av, bv, scale), 3)}
 
         def vector(qq, kk, vv):
             logits = torch.matmul(qq.float(), kk.float().transpose(-1, -2)) * scale
@@ -1544,18 +1611,32 @@ def phase_stream_times(sa, torch, dev):
         vec_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 3)
         del out, leaves
         torch.cuda.empty_cache()
-        t["fwd_lib"], t["bwd_lib"] = sdpa_ms(torch, q, k, v, None, g)
+        common["fwd_lib"], common["bwd_lib"] = sdpa_ms(torch, q, k, v, None, g)
         qkv_b, out_b = (q.numel() + k.numel() + v.numel()) * 2, q.numel() * 2
         vec_b = (av.numel() + bv.numel()) * 4
-        (t["fwd_bound"], t["fwd_by"]), (t["bwd_bound"], t["bwd_by"]) = attention_work(
-            b * h, n, d, d, (qkv_b, qkv_b + out_b + vec_b), (out_b + vec_b, qkv_b), True, 3,
-            True, 0, m=m)
-        times[label] = t
-        log(f"timing: streaming attention bf16 CvT {label} {list(shape)} (3, final) ms: fwd "
-            f"{t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, vector form {vec_fwd:.4f}, bound "
-            f"{t['fwd_bound']:.4f} {t['fwd_by']}) bwd {t['bwd']:.4f} (plain "
-            f"{t['bwd_plain']:.4f}, vector form {vec_bwd:.4f}, bound {t['bwd_bound']:.4f} "
-            f"{t['bwd_by']}); sdpa fwd {t['fwd_lib']:.4f} bwd {t['bwd_lib']:.4f}")
+        (common["fwd_bound"], common["fwd_by"]), (common["bwd_bound"], common["bwd_by"]) = \
+            attention_work(b * h, n, d, d, (qkv_b, qkv_b + out_b + vec_b),
+                           (out_b + vec_b, qkv_b), True, 3, True, 0, m=m)
+        floor = {dn: stream_sweep_floor(b * h, n, m, d, sweeps, clock)
+                 for dn, sweeps in (("fwd", 4), ("bwd", 5))}
+        times[label] = {br: dict(common, fwd=sum(t["fwd"]) / 2, bwd=sum(t["bwd"]) / 2)
+                        for br, t in turns.items()}
+        sp, ti = times[label]["split"], times[label]["tile"]
+        log(f"timing: streaming attention bf16 CvT {label} {list(shape)} (3, final) ms: "
+            f"split fwd {sp['fwd']:.4f} bwd {sp['bwd']:.4f} (turns fwd "
+            f"{turns['split']['fwd']}, bwd {turns['split']['bwd']}); tile fwd {ti['fwd']:.4f} "
+            f"bwd {ti['bwd']:.4f} (turns fwd {turns['tile']['fwd']}, bwd "
+            f"{turns['tile']['bwd']}); split/tile fwd {sp['fwd'] / ti['fwd']:.4f} bwd "
+            f"{sp['bwd'] / ti['bwd']:.4f}; plain fwd {common['fwd_plain']:.4f} bwd "
+            f"{common['bwd_plain']:.4f}; vector form fwd {vec_fwd:.4f} bwd {vec_bwd:.4f}; bound "
+            f"fwd {common['fwd_bound']:.4f} {common['fwd_by']} bwd {common['bwd_bound']:.4f} "
+            f"{common['bwd_by']}; sweep floor (4 / 5 sweeps of q·kᵀ at the bf16 peak and one "
+            f"exponential an entry at 16 a clock an SM, {clock:.0f} MHz) fwd "
+            f"{floor['fwd']:.4f} bwd {floor['bwd']:.4f}; sdpa fwd {common['fwd_lib']:.4f} bwd "
+            f"{common['bwd_lib']:.4f}")
+        if not (sp["fwd"] < ti["fwd"] and sp["bwd"] < ti["bwd"]):
+            raise RuntimeError(f"streaming {label}: the split kernels are not faster than the "
+                               f"tile kernels")
         del q, k, v, g, av, bv
         torch.cuda.empty_cache()
     return times
@@ -2216,7 +2297,7 @@ def main() -> int:
     phase_small_swin(ba, torch, dev)
     phase_small_levit(ba, ss, torch, dev)
     phase_small_cait(th, torch, dev)
-    phase_small_cvt(sa, ss, torch, dev)
+    stream_tile_launches = phase_small_cvt(sa, ss, torch, dev)
     recompute_launches = phase_small_mobile_vit(fa, torch, dev)
     phase_small_fused_ln_model(fl, pa, torch, dev)
     phase_small_vit(pa, fl, torch, dev)
@@ -2273,13 +2354,19 @@ def main() -> int:
                                    "fused_ln": 0},
                             False: {"talking_heads": 0, "square": 0, "rect": 0, "fused": 0,
                                     "fused_ln": 0}})
-    cvt_counts = {"streaming": sa.launches, "rect": ss.launches_rect, "square": ss.launches,
-                  "biased": ba.launches, "fused": fa.launches, "fused_ln": fl.launches}
+    # every robust CvT-13 step runs its 3 + 3 streaming launches on the
+    # split branch (bf16, D = 64)
+    cvt_counts = {"streaming": sa.launches, "streaming_split": sa.launches_split,
+                  "streaming_tile": sa.launches_tile, "rect": ss.launches_rect,
+                  "square": ss.launches, "biased": ba.launches, "fused": fa.launches,
+                  "fused_ln": fl.launches}
     counts_c = phase_train(cvt_counts, torch, dev, "cvt_13",
-                           {True: {"streaming": 3, "rect": 10, "square": 0, "biased": 0,
-                                   "fused": 0, "fused_ln": 0},
-                            False: {"streaming": 0, "rect": 0, "square": 0, "biased": 0,
-                                    "fused": 0, "fused_ln": 0}})
+                           {True: {"streaming": 3, "streaming_split": 3, "streaming_tile": 0,
+                                   "rect": 10, "square": 0, "biased": 0, "fused": 0,
+                                   "fused_ln": 0},
+                            False: {"streaming": 0, "streaming_split": 0, "streaming_tile": 0,
+                                    "rect": 0, "square": 0, "biased": 0, "fused": 0,
+                                    "fused_ln": 0}})
     # every robust MobileViT-XS step runs its 9 + 9 fused launches on the
     # resident branch
     mvit_counts = {"fused": fa.launches, "fused_resident": fa.launches_resident,
@@ -2421,12 +2508,18 @@ def main() -> int:
                      counts_t["talking_heads"]["fwd"], worst_t["fwd"], ttimes, "fwd"),
         kernel_entry("talking_heads_bwd", "talking_heads_bwd.cu", "talking_heads.py:208",
                      counts_t["talking_heads"]["bwd"], worst_t["bwd"], ttimes, "bwd"),
-        kernel_entry("streaming_attention_fwd", "streaming_attention_fwd.cu",
-                     "streaming_sinkhorn.py:397", counts_c["streaming"]["fwd"], worst_st["fwd"],
-                     sttimes["stage 1"], "fwd"),
-        kernel_entry("streaming_attention_bwd", "streaming_attention_bwd.cu",
-                     "streaming_sinkhorn.py:449", counts_c["streaming"]["bwd"], worst_st["bwd"],
-                     sttimes["stage 1"], "bwd"),
+        kernel_entry("streaming_split_fwd cvt_13", "streaming_split_fwd.cu",
+                     "streaming_sinkhorn.py:397", counts_c["streaming_split"]["fwd"],
+                     worst_st["split"]["fwd"], sttimes["stage 1"]["split"], "fwd"),
+        kernel_entry("streaming_split_bwd cvt_13", "streaming_split_bwd.cu",
+                     "streaming_sinkhorn.py:449", counts_c["streaming_split"]["bwd"],
+                     worst_st["split"]["bwd"], sttimes["stage 1"]["split"], "bwd"),
+        kernel_entry("streaming_attention_fwd tile", "streaming_attention_fwd.cu",
+                     "streaming_sinkhorn.py:397", stream_tile_launches["fwd"],
+                     worst_st["tile"]["fwd"], sttimes["stage 1"]["tile"], "fwd"),
+        kernel_entry("streaming_attention_bwd tile", "streaming_attention_bwd.cu",
+                     "streaming_sinkhorn.py:449", stream_tile_launches["bwd"],
+                     worst_st["tile"]["bwd"], sttimes["stage 1"]["tile"], "bwd"),
         kernel_entry("fused_attention_fwd float32", "fused_attention_fwd.cu",
                      "sinkhorn_attention.py:147", recompute_launches["fwd"],
                      worst_f["recompute"]["fwd"], ftimes["f32"], "fwd"),

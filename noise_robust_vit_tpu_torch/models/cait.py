@@ -59,7 +59,7 @@ class _TalkingHeadsAttention(nn.Module):
         b, n, m = x.shape[0], x.shape[1], ctx.shape[1]
         q = self.to_q(x).reshape(b, n, h, dh).transpose(1, 2)
         k, v = (t.reshape(b, m, h, dh).transpose(1, 2) for t in self.to_kv(ctx).chunk(2, dim=-1))
-        dots = torch.matmul(q.float(), k.float().transpose(-1, -2)) * dh ** -0.5
+        dots = ops.matmul_f32(q, k.transpose(-1, -2)) * dh ** -0.5
         pre, post = self.mix_heads_pre_attn, self.mix_heads_post_attn
         if self.dropout == 0.0 or not self.training:
             attn = ops.talking_heads_robust_softmax(dots, pre, post, robust=self.robust)

@@ -83,7 +83,7 @@ class _CvtAttention(nn.Module):
                                            self.dim_head)):
             out = ops.streaming_attention(q, k, v, scale=scale)
         else:
-            dots = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+            dots = ops.matmul_f32(q, k.transpose(-1, -2)) * scale
             attn = ops.robust_softmax(dots, robust=self.robust)
             attn = F.dropout(attn, self.dropout, self.training)
             out = torch.matmul(attn.to(v.dtype), v)

@@ -160,7 +160,7 @@ class LevitAttention(_BiasTable):
             out = ops.biased_attention(q, k, v, bias[None].float(), scale=kd ** -0.5,
                                        robust=True, num_windows=1)
         else:
-            attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * kd ** -0.5
+            attn = ops.matmul_f32(q, k.transpose(-1, -2)) * kd ** -0.5
             attn = ops.robust_softmax(attn + bias[None].float(), robust=self.robust)
             out = torch.matmul(attn.to(v.dtype), v)
         out = out.transpose(1, 2).reshape(b, n, h * d)
@@ -194,7 +194,7 @@ class LevitAttentionSubsample(_BiasTable):
         r, s = self.resolution, self.stride
         xs = x.reshape(b, r, r, c)[:, ::s, ::s].reshape(b, n_, c)
         q = self.q(xs).reshape(b, n_, h, kd).transpose(1, 2)
-        attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * kd ** -0.5
+        attn = ops.matmul_f32(q, k.transpose(-1, -2)) * kd ** -0.5
         attn = ops.robust_softmax(attn + self.attention_bias()[None].float(),
                                   robust=self.robust)
         out = torch.matmul(attn.to(v.dtype), v).transpose(1, 2).reshape(b, n_, h * d)

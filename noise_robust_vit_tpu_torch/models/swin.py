@@ -187,9 +187,9 @@ class ShiftedWindowAttention(nn.Module):
                                            robust=True, num_windows=num_windows)
         else:
             if self.version == 2:
-                attn = torch.matmul(qn.float(), kn.float().transpose(-1, -2)) * scale.float()
+                attn = ops.matmul_f32(qn, kn.transpose(-1, -2)) * scale.float()
             else:
-                attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * dh ** -0.5
+                attn = ops.matmul_f32(q, k.transpose(-1, -2)) * dh ** -0.5
             attn = attn + rel_bias.float()
             if mask is not None:
                 attn = attn.reshape(b, num_windows, heads, n, n) + mask[None, :, None]

@@ -7,6 +7,7 @@ from .attention import (
     dot_product_attention,
     fused_attention,
     fused_dispatch,
+    matmul_f32,
     packed_attention,
     packed_dispatch,
     streaming_attention,
@@ -34,6 +35,7 @@ __all__ = [
     "fused_dispatch",
     "fused_layer_norm",
     "gelu",
+    "matmul_f32",
     "packed_attention",
     "packed_dispatch",
     "posemb_sincos_2d",

@@ -28,8 +28,56 @@ from .cuda.streaming_attention import StreamingAttention, streaming_attention_su
 from .sinkhorn import sinkhorn_scalings
 
 __all__ = ["biased_attention", "biased_dispatch", "dot_product_attention",
-           "fused_attention", "fused_dispatch", "packed_attention", "packed_dispatch",
-           "streaming_attention", "streaming_dispatch"]
+           "fused_attention", "fused_dispatch", "matmul_f32", "packed_attention",
+           "packed_dispatch", "streaming_attention", "streaming_dispatch"]
+
+
+class _Bf16MatmulF32(torch.autograd.Function):
+    """``a [..., n, k] @ b [..., k, m]`` (batch dims broadcast), bf16 CUDA
+    tensors, to float32 on the tensor cores (``aten::bmm.dtype``). Its
+    backward, which that op lacks, is the upcast product's: the float32
+    gradient against the operands cast up, summed over broadcast dims,
+    rounded to bf16 once. (Splitting the gradient into bf16 hi + lo for
+    tensor-core products moved the N×M gradient through memory three more
+    times and slowed the host-bound vanilla steps: PERF.md §6.)"""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+        a3 = a.expand(*lead, *a.shape[-2:]).reshape(-1, *a.shape[-2:])
+        b3 = b.expand(*lead, *b.shape[-2:]).reshape(-1, *b.shape[-2:])
+        ctx.save_for_backward(a3, b3)
+        ctx.shapes = (lead, a.shape, b.shape)
+        out = torch.bmm(a3, b3, out_dtype=torch.float32)
+        return out.reshape(*lead, a.shape[-2], b.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a3, b3 = ctx.saved_tensors
+        lead, a_shape, b_shape = ctx.shapes
+        g3 = g.reshape(-1, *g.shape[-2:])
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g3, b3.transpose(1, 2).float()).reshape(*lead, *a_shape[-2:])
+            ga = ga.sum_to_size(a_shape).to(a3.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a3.transpose(1, 2).float(), g3).reshape(*lead, *b_shape[-2:])
+            gb = gb.sum_to_size(b_shape).to(b3.dtype)
+        return ga, gb
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over ``[..., n, k]`` and ``[..., k, m]`` (batch dims
+    broadcast) as float32, as the JAX package's ``preferred_element_type=
+    jnp.float32``: bf16 CUDA operands multiply straight into float32 on the
+    tensor cores (a bf16 × bf16 product is exact in float32; only the order
+    of the sum differs from the upcast product). Every other case upcasts
+    and takes ``torch.matmul``: float32 operands, and CPU tensors, where the
+    op is missing."""
+    if a.is_cuda and a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16:
+        return _Bf16MatmulF32.apply(a, b)
+    return torch.matmul(a.float(), b.float())
+
 
 # Whether the packed kernels serve a self-attention shape (vanilla and robust
 # both take them): the kernels' own shape gate.
@@ -151,7 +199,7 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             sinkhorn_iters, q.dtype):
         return fused_attention(q, k, v, scale=scale, robust=True, sinkhorn_iters=sinkhorn_iters,
                                final_row_norm=final_row_norm)
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = matmul_f32(q, k.transpose(-1, -2)) * scale
     if bias is not None:
         logits = logits + bias.float()
     if mask is not None:
@@ -166,6 +214,6 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  final_row_norm=final_row_norm,
                                  assume_row_stochastic=mask is None)
         v = v * b[..., :, None].to(v.dtype)
-        out = torch.matmul(attn.to(v.dtype).float(), v.float())
+        out = matmul_f32(attn.to(v.dtype), v)
         return (out * a[..., :, None]).to(v.dtype)
-    return torch.matmul(attn.to(v.dtype).float(), v.float()).to(v.dtype)
+    return matmul_f32(attn.to(v.dtype), v).to(v.dtype)

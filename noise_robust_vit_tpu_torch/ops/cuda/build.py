@@ -93,6 +93,14 @@ _ENTRIES = {
     # q, k, v, g, av, bv, dq, dk, dv, acc, rows, dtype, K, N, M, D, scale,
     # iters, final_row, tq, stream
     "nrv_streaming_attention_bwd": ([_VP] * 11 + [_I] * 5 + [_F] + [_I] * 3 + [_VP]),
+    # N
+    "nrv_streaming_split_splits": ([_I]),
+    # q, k, v, out, av, bv, part, K, N, M, D, scale, iters, final_row, stream
+    # (bf16, D = 64)
+    "nrv_streaming_split_fwd": ([_VP] * 7 + [_I] * 4 + [_F] + [_I] * 2 + [_VP]),
+    # q, k, v, g, av, bv, dq, dk, dv, part, U, W, go, rho, us, ws, K, N, M, D,
+    # scale, iters, final_row, stream (bf16, D = 64)
+    "nrv_streaming_split_bwd": ([_VP] * 16 + [_I] * 4 + [_F] + [_I] * 2 + [_VP]),
     # q, k, v, out, vecs, dtype, K, N, D, DV, scale, robust, iters, final_row,
     # stream
     "nrv_fused_attention_fwd": ([_VP] * 5 + [_I] * 5 + [_F] + [_I] * 3 + [_VP]),

@@ -29,9 +29,23 @@ default): padded rows carry ``lse = +BIG`` so that every recompute of them
 is exactly zero, and padded key columns are masked to ``−BIG`` before the
 exp, as in the Pallas kernel; tiles change no number beyond rounding.
 
+Two branches of kernels compute the function, chosen by shape and dtype
+before the call (``streaming_branch``): the split kernels
+(``csrc/streaming_split_{fwd,bwd}.cu``; bf16, D = 64, 1 to 8 iterations: an
+item's query rows split over many blocks, the column sums as per-split
+partials summed in split order, every product on the tensor cores) and the
+tile kernels (``csrc/streaming_attention_{fwd,bwd}.cu``; every other shape
+and dtype the gate takes: one block an item, walking its query tiles).
+Both write the same residuals, so either backward takes either forward's.
+``splits=`` makes the plain versions mirror the split kernels' order of
+sums: per-split column partials added in split order, the ``[M, D]``
+gradients (dv's T, dk) and dv's column term key-major, over every query at
+once.
+
 Three pieces live here, as in ``sinkhorn_softmax.py``: the plain PyTorch
-versions, the ctypes wrappers of ``csrc/streaming_attention_{fwd,bwd}.cu``
-with a launch count, and the autograd function ``StreamingAttention``.
+versions, the ctypes wrappers of both branches' kernels with launch counts
+(``launches``, and by branch ``launches_split`` / ``launches_tile``), and
+the autograd function ``StreamingAttention``.
 """
 
 from __future__ import annotations
@@ -44,6 +58,8 @@ from .build import LaunchCounts, by_device, check_operand, ptr, raise_on, stream
 __all__ = [
     "StreamingAttention",
     "launches",
+    "launches_split",
+    "launches_tile",
     "streaming_attention_bwd",
     "streaming_attention_bwd_cuda",
     "streaming_attention_bwd_plain",
@@ -51,6 +67,7 @@ __all__ = [
     "streaming_attention_fwd_cuda",
     "streaming_attention_fwd_plain",
     "streaming_attention_supported",
+    "streaming_branch",
 ]
 
 # Gate. A block holds one item's query tile of tq full rows of en (float32,
@@ -73,6 +90,15 @@ _NEG = -1e30
 _BIG = 1e30
 
 launches = LaunchCounts()
+launches_split = LaunchCounts()
+launches_tile = LaunchCounts()
+
+# The split branch (csrc/streaming_split.cuh): bf16, D = 64; the rank-1
+# terms of the backward (nt = 2·iters − 1 + final_row, at most kTerms = 16,
+# each factor row split into bf16 hi + lo). The library says how many
+# splits of the query rows its sweeps make (nrv_streaming_split_splits).
+_SPLIT_D = 64
+_SPLIT_TERMS = 2 * MAX_ITERS
 
 
 def _padded_ld(n: int) -> int:
@@ -112,6 +138,15 @@ def streaming_attention_supported(b: int, h: int, n: int, m: int, d: int, iters:
     return (b >= 1 and h >= 1 and n >= 1 and m >= 1 and d >= 4 and d % 4 == 0
             and 1 <= iters <= MAX_ITERS and (dtype is None or dtype in _DTYPE_CODES)
             and _tile(m, d, iters) > 0)
+
+
+def streaming_branch(n: int, m: int, d: int, dtype: torch.dtype, iters: int = 3) -> str:
+    """The kernels a CUDA call of this shape and dtype goes to: "split"
+    (bf16, D = 64, 1 to 8 iterations, any N and M the gate takes: M up to
+    ~2000 at D = 64) or "tile" (every other call the gate takes: float32,
+    other widths)."""
+    return ("split" if dtype == torch.bfloat16 and d == _SPLIT_D and 1 <= iters <= MAX_ITERS
+            else "tile")
 
 
 # --------------------------------------------------------------------------
@@ -160,10 +195,54 @@ class _Sweeps:
         return torch.exp(self.logits(t) - lse[:, t:t + self.tq, None])
 
 
-def streaming_attention_fwd_plain(q, k, v, scale, iters=3, final_row=True, tile=None):
+def _split_bounds(n: int, splits: int) -> list[tuple[int, int]]:
+    rows = -(-n // int(splits))
+    return [(a, min(n, a + rows)) for a in range(0, n, rows)]
+
+
+def _split_colsum(x, bounds):
+    """Σ over the rows of ``x [K, N, M]`` as one partial a split, the
+    partials added in split order."""
+    total = None
+    for a, b in bounds:
+        part = x[:, a:b].sum(1)
+        total = part if total is None else total + part
+    return total
+
+
+def _fwd_split_plain(q, k, v, scale, iters, final_row, splits):
+    """The forward in the split kernels' order of sums: whole rows, column
+    sums as per-split partials."""
+    sw = _Sweeps(q, k, v, scale, None)
+    bounds = _split_bounds(sw.n, splits)
+    s = sw.logits(0)
+    mx = s.amax(-1, keepdim=True)
+    lse = (mx + torch.log(torch.exp(s - mx).sum(-1, keepdim=True)))[..., 0]
+    en = torch.exp(s - lse[..., None])
+    b = clamped_recip(_split_colsum(en, bounds))
+    b_rows, a_rows = [b], []
+    for _ in range(1, iters):
+        a = clamped_recip((en * b[:, None, :]).sum(-1))
+        a_rows.append(a)
+        b = clamped_recip(_split_colsum(en * a[..., None], bounds))
+        b_rows.append(b)
+    if final_row:
+        a_rows.append(clamped_recip((en * b[:, None, :]).sum(-1)))
+    a_out = a_rows[-1] if a_rows else torch.ones_like(lse)
+    out = a_out[..., None] * torch.bmm(en, sw.v * b[..., None])
+    av = torch.stack([lse] + a_rows, dim=1)
+    bv = torch.stack(b_rows, dim=1)[:, :, :sw.m]
+    return out.reshape(q.shape).to(v.dtype), av.contiguous(), bv.contiguous()
+
+
+def streaming_attention_fwd_plain(q, k, v, scale, iters=3, final_row=True, tile=None,
+                                  splits=None):
     """Forward in eager torch over query tiles of ``tile`` rows (the whole
     N by default): ``(out [B, H, N, D]`` in v's dtype, ``av [B·H, 1 + n_av,
-    N]``, ``bv [B·H, iters, M]`` float32)."""
+    N]``, ``bv [B·H, iters, M]`` float32). With ``splits``, the split
+    kernels' order of sums over that many splits of the rows instead."""
+    if splits is not None:
+        return _fwd_split_plain(q, k, v, scale, iters, final_row, splits)
     sw = _Sweeps(q, k, v, scale, tile)
     kb = sw.q.shape[0]
     zeros_m = lambda: torch.zeros(kb, sw.m_pad, dtype=torch.float32, device=q.device)  # noqa: E731
@@ -213,11 +292,61 @@ def streaming_attention_fwd_plain(q, k, v, scale, iters=3, final_row=True, tile=
     return out[:, :sw.n].reshape(q.shape).to(v.dtype), av.contiguous(), bv.contiguous()
 
 
+def _bwd_split_plain(q, k, v, g, av, bv, scale, iters, final_row, splits):
+    """The backward in the split kernels' order of sums: T, dv's column term
+    and dk key-major (every query at once), the chain's column sums as
+    per-split partials, ρ as Σ_j en·(the rank-1 stack)."""
+    sw = _Sweeps(q, k, v, scale, None)
+    bounds = _split_bounds(sw.n, splits)
+    kb, d = sw.q.shape[0], sw.shape[3]
+    n_av = _n_avecs(iters, final_row)
+    g32 = g.reshape(kb, sw.n, d).float()
+    lse = av[:, 0]
+    a_rows = [av[:, 1 + j] for j in range(n_av)]
+    b_rows = [_pad_rows(bv[:, i], sw.m_pad, 1.0) for i in range(iters)]
+    a_f = a_rows[-1] if n_av else torch.ones_like(lse)
+    b_f = b_rows[-1]
+    bfv = sw.v * b_f[..., None]
+    en = sw.en(0, lse)
+    ag = a_f[..., None] * g32
+    go = (ag * torch.bmm(en, bfv)).sum(-1)
+    tacc = torch.bmm(en.transpose(1, 2), ag)
+    dv = b_f[..., None] * tacc
+    db = (sw.v * tacc).sum(-1)
+    terms = []
+    if final_row:
+        du_f = -go * a_f
+        db = db + torch.bmm(du_f[:, None, :], en)[:, 0]
+        terms.append((du_f, b_f))
+    for i in range(iters - 1, 0, -1):
+        dw = -db * b_rows[i] * b_rows[i]
+        a_prev = a_rows[i - 1]
+        terms.append((a_prev, dw))
+        da = torch.bmm(en, dw[..., None])[..., 0]
+        if not final_row and i == iters - 1:
+            da = da + go / a_f
+        du = -da * a_prev * a_prev
+        terms.append((du, b_rows[i - 1]))
+        db = _split_colsum(en * du[..., None], bounds)
+    terms.append((torch.ones_like(lse), -db * b_rows[0] * b_rows[0]))
+    r1 = torch.bmm(torch.stack([u for u, _ in terms], dim=2),
+                   torch.stack([w for _, w in terms], dim=1))
+    rho = (en * r1).sum(-1) + go
+    ds = en * (r1 + torch.bmm(ag, bfv.transpose(1, 2)) - rho[..., None])
+    dq = scale * torch.bmm(ds, sw.k)
+    dk = scale * torch.bmm(ds.transpose(1, 2), sw.q)
+    return (dq.reshape(q.shape).to(q.dtype), dk[:, :sw.m].reshape(k.shape).to(k.dtype),
+            dv[:, :sw.m].reshape(v.shape).to(v.dtype))
+
+
 def streaming_attention_bwd_plain(q, k, v, g, av, bv, scale, iters=3, final_row=True,
-                                  tile=None):
+                                  tile=None, splits=None):
     """Backward in eager torch from the residuals: ``(dq, dk, dv)`` in q's,
     k's and v's dtypes. Mirrors ``_stream_bwd_kernel``: B1, the reverse
-    chain's fused sweeps, then the final sweep with the rank-1 stack."""
+    chain's fused sweeps, then the final sweep with the rank-1 stack. With
+    ``splits``, the split kernels' order of sums instead."""
+    if splits is not None:
+        return _bwd_split_plain(q, k, v, g, av, bv, scale, iters, final_row, splits)
     sw = _Sweeps(q, k, v, scale, tile)
     kb, tq, d = sw.q.shape[0], sw.tq, sw.shape[3]
     n_av = _n_avecs(iters, final_row)
@@ -292,16 +421,14 @@ def streaming_attention_bwd_plain(q, k, v, g, av, bv, scale, iters=3, final_row=
 
 
 # --------------------------------------------------------------------------
-# CUDA kernels (csrc/streaming_attention_{fwd,bwd}.cu)
+# CUDA kernels (csrc/streaming_split_{fwd,bwd}.cu, csrc/streaming_attention_{fwd,bwd}.cu)
 # --------------------------------------------------------------------------
 
 def _check(name, t, like, dtype=None, shape=None):
     check_operand("streaming attention", name, t, like, dtype, shape)
 
 
-def _check_inputs(q, k, v, iters):
-    if not q.is_cuda:
-        raise ValueError("streaming attention kernel: q must be a CUDA tensor")
+def _check_inputs(q, k, v, iters, branch):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"streaming attention kernel: dtype {q.dtype} not in "
                         f"{list(_DTYPE_CODES)}")
@@ -315,54 +442,94 @@ def _check_inputs(q, k, v, iters):
     if not streaming_attention_supported(b, h, n, m, d, iters):
         raise ValueError(f"streaming attention kernel: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)} with iters={iters} is outside the gate")
-    return b * h, n, m, d
+    rule = streaming_branch(n, m, d, q.dtype, iters)
+    chosen = branch or rule
+    if chosen not in ("split", "tile"):
+        raise ValueError(f"streaming attention kernel: no branch {chosen!r}")
+    if chosen == "split" and rule != "split":
+        raise ValueError(f"streaming attention kernel: the split branch does not take "
+                         f"N={n} M={m} D={d} {q.dtype} iters={iters}")
+    if not q.is_cuda:
+        raise ValueError("streaming attention kernel: q must be a CUDA tensor")
+    return b * h, n, m, d, chosen
+
+
+def _count(chosen, direction):
+    for c in (launches, launches_split if chosen == "split" else launches_tile):
+        setattr(c, direction, getattr(c, direction) + 1)
 
 
 def _residual_shapes(kb, n, m, iters, final_row):
     return (kb, 1 + _n_avecs(iters, final_row), n), (kb, iters, m)
 
 
-def streaming_attention_fwd_cuda(q, k, v, scale, iters=3, final_row=True):
-    """Launch the forward kernel; returns ``(out, av, bv)`` like the plain
-    version. Raises on anything the kernel does not take."""
+def streaming_attention_fwd_cuda(q, k, v, scale, iters=3, final_row=True, branch=None):
+    """Launch the forward kernels of the branch ``streaming_branch`` picks
+    (or ``branch``); returns ``(out, av, bv)`` like the plain version.
+    Raises on anything the kernels do not take. Scratch of the split
+    branch: the column partials [K, S, M] float32."""
     from .build import load_library
 
-    kb, n, m, d = _check_inputs(q, k, v, iters)
+    kb, n, m, d, chosen = _check_inputs(q, k, v, iters, branch)
     out = torch.empty_like(q)
     shape_a, shape_b = _residual_shapes(kb, n, m, iters, final_row)
     av = torch.empty(shape_a, dtype=torch.float32, device=q.device)
     bv = torch.empty(shape_b, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = load_library().nrv_streaming_attention_fwd(
-            ptr(q), ptr(k), ptr(v), ptr(out), ptr(av), ptr(bv), _DTYPE_CODES[q.dtype], kb, n,
-            m, d, float(scale), int(iters), int(final_row), _tile(m, d, iters),
-            stream(q.device))
-    raise_on(err, "streaming attention forward kernel")
-    launches.fwd += 1
+        if chosen == "split":
+            splits = load_library().nrv_streaming_split_splits(n)
+            part = torch.empty(kb, splits, m, dtype=torch.float32, device=q.device)
+            err = load_library().nrv_streaming_split_fwd(
+                ptr(q), ptr(k), ptr(v), ptr(out), ptr(av), ptr(bv), ptr(part), kb, n, m, d,
+                float(scale), int(iters), int(final_row), stream(q.device))
+        else:
+            err = load_library().nrv_streaming_attention_fwd(
+                ptr(q), ptr(k), ptr(v), ptr(out), ptr(av), ptr(bv), _DTYPE_CODES[q.dtype], kb,
+                n, m, d, float(scale), int(iters), int(final_row), _tile(m, d, iters),
+                stream(q.device))
+    raise_on(err, f"streaming attention forward kernel ({chosen})")
+    _count(chosen, "fwd")
     return out, av, bv
 
 
-def streaming_attention_bwd_cuda(q, k, v, g, av, bv, scale, iters=3, final_row=True):
-    """Launch the backward kernel; returns ``(dq, dk, dv)``. Scratch: the
-    [M, D] float32 accumulator of each item and its row vectors (go and up
-    to ``iters`` du-vectors), in device memory."""
+def streaming_attention_bwd_cuda(q, k, v, g, av, bv, scale, iters=3, final_row=True,
+                                 branch=None):
+    """Launch the backward kernels of the branch, as the forward; returns
+    ``(dq, dk, dv)``. Scratch, float32: the tile branch's [M, D]
+    accumulator of each item and its row vectors (go and up to ``iters``
+    du-vectors); the split branch's column partials [K, S, M], rank-1
+    factors [K, nt, N] and [K, nt, M], go and ρ [K, N], and in bf16 the
+    factors split into hi + lo rows [K, N, 32] and [K, M, 32]."""
     from .build import load_library
 
-    kb, n, m, d = _check_inputs(q, k, v, iters)
+    kb, n, m, d, chosen = _check_inputs(q, k, v, iters, branch)
     _check("g", g, q, shape=q.shape)
     for name, t, shape in zip(("av", "bv"), (av, bv),
                               _residual_shapes(kb, n, m, iters, final_row)):
         _check(name, t, q, torch.float32, shape)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    acc = torch.empty(kb, m, d, dtype=torch.float32, device=q.device)
-    rows = torch.empty(kb, 1 + iters, n, dtype=torch.float32, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = load_library().nrv_streaming_attention_bwd(
-            ptr(q), ptr(k), ptr(v), ptr(g), ptr(av), ptr(bv), ptr(dq), ptr(dk), ptr(dv),
-            ptr(acc), ptr(rows), _DTYPE_CODES[q.dtype], kb, n, m, d, float(scale), int(iters),
-            int(final_row), _tile(m, d, iters), stream(q.device))
-    raise_on(err, "streaming attention backward kernel")
-    launches.bwd += 1
+        if chosen == "split":
+            nt = 2 * iters - 1 + int(final_row)
+            part = torch.empty(kb, load_library().nrv_streaming_split_splits(n), m, **f32)
+            u, w = torch.empty(kb, nt, n, **f32), torch.empty(kb, nt, m, **f32)
+            go, rho = torch.empty(kb, n, **f32), torch.empty(kb, n, **f32)
+            us = torch.empty(kb, n, 2 * _SPLIT_TERMS, dtype=torch.bfloat16, device=q.device)
+            ws = torch.empty(kb, m, 2 * _SPLIT_TERMS, dtype=torch.bfloat16, device=q.device)
+            err = load_library().nrv_streaming_split_bwd(
+                ptr(q), ptr(k), ptr(v), ptr(g), ptr(av), ptr(bv), ptr(dq), ptr(dk), ptr(dv),
+                ptr(part), ptr(u), ptr(w), ptr(go), ptr(rho), ptr(us), ptr(ws), kb, n, m, d,
+                float(scale), int(iters), int(final_row), stream(q.device))
+        else:
+            acc = torch.empty(kb, m, d, **f32)
+            rows = torch.empty(kb, 1 + iters, n, **f32)
+            err = load_library().nrv_streaming_attention_bwd(
+                ptr(q), ptr(k), ptr(v), ptr(g), ptr(av), ptr(bv), ptr(dq), ptr(dk), ptr(dv),
+                ptr(acc), ptr(rows), _DTYPE_CODES[q.dtype], kb, n, m, d, float(scale),
+                int(iters), int(final_row), _tile(m, d, iters), stream(q.device))
+    raise_on(err, f"streaming attention backward kernel ({chosen})")
+    _count(chosen, "bwd")
     return dq, dk, dv
 
 

@@ -10,8 +10,15 @@ the JAX suite's own: out atol 5e-6 / rtol 1e-5, dq, dk, dv atol and rtol
 2e-5; the residual vectors, which the JAX suite does not compare, rtol 2e-5
 (the a- and b-vectors run up to the number of keys or queries).
 
-The ``gpu`` cases compare the CUDA kernels with the plain versions on the
-card and skip where there is none. JAX is imported only by the tests that
+``splits=`` makes the plain versions mirror the split kernels' order of
+sums (per-split column partials added in split order, the [M, D] gradients
+key-major); that mirror is held against the JAX kernel at the same
+tolerances, and against the unsplit plain versions within rounding (atol
+1e-6, rtol 1e-5).
+
+The ``gpu`` cases compare the CUDA kernels of both branches (``split``:
+bf16, D = 64; ``tile``: the rest) with the plain versions on the card and
+skip where there is none. JAX is imported only by the tests that
 compare with it, so the file also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_streaming_attention.py -m gpu
@@ -204,6 +211,86 @@ def test_dispatch(jx, args, want):
         jx.ops.set_use_pallas(None)
 
 
+@pytest.mark.parametrize("schedule", SCHEDULES, ids=lambda s: f"{s[0]}-{int(s[1])}")
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_split_mirror_matches_jax_kernel(jx, shape, schedule):
+    """The plain versions in the split kernels' order of sums (3 splits of
+    the rows) against ``jax.vjp`` of the interpret-mode kernel: out, dq, dk,
+    dv at the JAX suite's tolerances."""
+    iters, final_row = schedule
+    q, k, v, g = _inputs(10, shape)
+    scale = shape[-1] ** -0.5
+    out_j, vjp = jx.jax.vjp(
+        lambda a, b, c: jx.ss.streaming_attention(a, b, c, scale, iters, final_row, True),
+        *map(jx.jnp.asarray, (q, k, v)))
+    grads_j = vjp(jx.jnp.asarray(g))
+    qt, kt, vt, gt = map(torch.from_numpy, (q, k, v, g))
+    out, av, bv = sa.streaming_attention_fwd_plain(qt, kt, vt, scale, iters, final_row, splits=3)
+    grads = sa.streaming_attention_bwd_plain(qt, kt, vt, gt, av, bv, scale, iters, final_row,
+                                             splits=3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), **OUT)
+    for name, a, w in zip("qkv", grads, grads_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), err_msg=f"d{name}", **GRADS)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 7, 5, 40], ids=lambda s: f"splits{s}")
+@pytest.mark.parametrize("schedule", SCHEDULES + [(1, False)],
+                         ids=lambda s: f"{s[0]}-{int(s[1])}")
+def test_splits_change_nothing_but_rounding(schedule, splits):
+    """Any number of splits (5 leaves a short last split of 37 rows, 40 one
+    row a split and three empty) gives the unsplit plain versions' numbers
+    within rounding: out, av, bv, dq, dk, dv."""
+    iters, final_row = schedule
+    shape = (2, 2, 37, 21, 16)
+    q, k, v, g = (torch.from_numpy(a) for a in _inputs(11, shape))
+    scale = 16 ** -0.5
+    want = sa.streaming_attention_fwd_plain(q, k, v, scale, iters, final_row)
+    got = sa.streaming_attention_fwd_plain(q, k, v, scale, iters, final_row, splits=splits)
+    want += sa.streaming_attention_bwd_plain(q, k, v, g, *want[1:], scale, iters, final_row)
+    got += sa.streaming_attention_bwd_plain(q, k, v, g, *got[1:], scale, iters, final_row,
+                                            splits=splits)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5, msg=f"output {i}")
+
+
+@pytest.mark.parametrize("args,want", [
+    ((3136, 784, 64, torch.bfloat16, 3), "split"),   # CvT-13 stage 1
+    ((784, 196, 64, torch.bfloat16, 3), "split"),    # CvT-13 stage 2
+    ((3136, 64, 64, torch.bfloat16, 3), "split"),    # Twins-SVT-S stage 1 (M = 64)
+    ((784, 16, 64, torch.bfloat16, 3), "split"),     # Twins-SVT-S stage 2 (M = 16)
+    ((5, 1, 64, torch.bfloat16, 8), "split"),        # one key, 8 iterations
+    ((3136, 784, 64, torch.bfloat16, 9), "tile"),    # beyond 8 iterations
+    ((3136, 784, 64, torch.float32, 3), "tile"),     # float32
+    ((300, 130, 24, torch.bfloat16, 3), "tile"),     # D = 24
+    ((300, 130, 32, torch.bfloat16, 3), "tile"),     # D = 32
+])
+def test_streaming_branch_rule(args, want):
+    """The split branch takes bf16 at D = 64 and 1 to 8 iterations, any N
+    and M; everything else the gate takes stays on the tile branch."""
+    assert sa.streaming_branch(*args) == want
+
+
+def test_cuda_wrapper_refuses_forced_branch_outside_its_rule():
+    """A forced ``branch="split"`` outside the rule raises, in both
+    directions, before anything is launched; so does a branch that does
+    not exist."""
+    q, k, v, g = (torch.from_numpy(a) for a in _inputs(12, (1, 1, 8, 8, 8)))
+    _, av, bv = sa.streaming_attention_fwd_plain(q, k, v, 0.5)
+    with pytest.raises(ValueError, match="split branch does not take"):
+        sa.streaming_attention_fwd_cuda(q, k, v, 0.5, branch="split")
+    with pytest.raises(ValueError, match="split branch does not take"):
+        sa.streaming_attention_bwd_cuda(q, k, v, g, av, bv, 0.5, branch="split")
+    with pytest.raises(ValueError, match="no branch"):
+        sa.streaming_attention_fwd_cuda(q, k, v, 0.5, branch="resident")
+    q16, k16, v16 = (torch.from_numpy(a).to(torch.bfloat16)
+                     for a in _inputs(12, (1, 1, 8, 8, 32))[:3])
+    with pytest.raises(ValueError, match="split branch does not take"):
+        sa.streaming_attention_fwd_cuda(q16, k16, v16, 32 ** -0.5, branch="split")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        sa.streaming_attention_fwd_cuda(q16, k16, v16, 32 ** -0.5, branch="tile")
+
+
 def test_cuda_wrapper_refuses_cpu_tensor():
     q, k, v, _ = (torch.from_numpy(a) for a in _inputs(5, (1, 1, 8, 8, 8)))
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -221,11 +308,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _kernel_vs_plain(q, k, v, g, iters, final_row):
+def _kernel_vs_plain(q, k, v, g, iters, final_row, branch=None):
     """(kernel, plain) results: (out, av, bv, dq, dk, dv)."""
     scale = q.shape[-1] ** -0.5
-    got = sa.streaming_attention_fwd_cuda(q, k, v, scale, iters, final_row)
-    got = (*got, *sa.streaming_attention_bwd_cuda(q, k, v, g, *got[1:], scale, iters, final_row))
+    got = sa.streaming_attention_fwd_cuda(q, k, v, scale, iters, final_row, branch=branch)
+    got = (*got, *sa.streaming_attention_bwd_cuda(q, k, v, g, *got[1:], scale, iters, final_row,
+                                                  branch=branch))
     want = sa.streaming_attention_fwd_plain(q, k, v, scale, iters, final_row)
     want = (*want, *sa.streaming_attention_bwd_plain(q, k, v, g, *want[1:], scale, iters,
                                                      final_row))
@@ -305,3 +393,84 @@ def test_autograd_on_card_launches_kernels(cuda):
                                rtol=1e-3)
     for a, b in zip(card, cpu):
         np.testing.assert_allclose(a.grad.cpu().numpy(), b.grad.numpy(), atol=1e-4, rtol=1e-3)
+
+
+# The split branch at CvT-13's stages 1 and 2 (small batch), Twins-SVT-S's
+# global stages 1 and 2 (8 heads, 64 and 16 keys), ragged both ways, one key
+SPLIT_SHAPES = [(2, 1, 3136, 784, 64), (4, 3, 784, 196, 64), (2, 8, 3136, 64, 64),
+                (2, 8, 784, 16, 64), (3, 2, 37, 21, 64), (1, 1, 5, 1, 64)]
+SPLIT_SCHEDULES = [(3, True), (4, False), (1, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", SPLIT_SCHEDULES, ids=lambda s: f"{s[0]}-{int(s[1])}")
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_split_kernels_match_plain(cuda, shape, schedule):
+    """bf16: out, dq, dk, dv atol and rtol 2e-2, av and bv 1e-3; one launch
+    each way, counted on the split branch."""
+    sa.launches_split.reset()
+    got, want = _kernel_vs_plain(*card_inputs(cuda, 13, shape, torch.bfloat16), *schedule,
+                                 branch="split")
+    assert (sa.launches_split.fwd, sa.launches_split.bwd) == (1, 1)
+    assert_kernel_matches(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", [(5, True), (8, True), (8, False)],
+                         ids=["5-1", "8-1", "8-0"])
+def test_split_kernels_at_long_schedules(cuda, schedule):
+    """Up to 8 iterations: 16 rank-1 terms at (8, final), the most the
+    split backward's factor rows hold."""
+    assert_kernel_matches(*_kernel_vs_plain(*card_inputs(cuda, 17, (2, 2, 600, 150, 64),
+                                                         torch.bfloat16), *schedule,
+                                            branch="split"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [SPLIT_SHAPES[0], SPLIT_SHAPES[2]],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_split_kernels_repeat_bit_for_bit(cuda, shape):
+    """No atomics: the column partials are summed in split order, every row
+    and key sum by one warp in a fixed order, so two runs give the same
+    bits."""
+    inputs = card_inputs(cuda, 14, shape, torch.bfloat16)
+    first = _kernel_vs_plain(*inputs, 3, True, branch="split")[0]
+    again = _kernel_vs_plain(*inputs, 3, True, branch="split")[0]
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fwd_branch,bwd_branch", [("tile", "split"), ("split", "tile")])
+@pytest.mark.parametrize("schedule", [(3, True), (4, False)], ids=["3-1", "4-0"])
+def test_branches_share_residuals(cuda, fwd_branch, bwd_branch, schedule):
+    """Either branch's backward takes the other's forward residuals: the
+    gradients match the plain version's."""
+    q, k, v, g = card_inputs(cuda, 15, (4, 3, 784, 196, 64), torch.bfloat16)
+    scale = 64 ** -0.5
+    _, av, bv = sa.streaming_attention_fwd_cuda(q, k, v, scale, *schedule, branch=fwd_branch)
+    got = sa.streaming_attention_bwd_cuda(q, k, v, g, av, bv, scale, *schedule,
+                                          branch=bwd_branch)
+    want_fwd = sa.streaming_attention_fwd_plain(q, k, v, scale, *schedule)
+    want = sa.streaming_attention_bwd_plain(q, k, v, g, *want_fwd[1:], scale, *schedule)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,branch", [(torch.bfloat16, 64, "split"),
+                                            (torch.float32, 64, "tile"),
+                                            (torch.bfloat16, 32, "tile")], ids=str)
+def test_autograd_launches_by_branch(cuda, dtype, d, branch):
+    """``ops.streaming_attention`` on the card: one forward and one
+    backward launch, on the branch the rule picks, none on the other."""
+    q, k, v, g = card_inputs(cuda, 16, (2, 2, 300, 90, d), dtype)
+    for c in (sa.launches, sa.launches_split, sa.launches_tile):
+        c.reset()
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    ops.streaming_attention(*leaves).backward(g)
+    torch.cuda.synchronize()
+    on, off = ((sa.launches_split, sa.launches_tile) if branch == "split"
+               else (sa.launches_tile, sa.launches_split))
+    assert (sa.launches.fwd, sa.launches.bwd) == (1, 1)
+    assert (on.fwd, on.bwd) == (1, 1) and (off.fwd, off.bwd) == (0, 0)

@@ -10,13 +10,18 @@ checked against the plain versions at CvT-13's stage 1 and stage 2 q/k/v
 to 1e-3; a variant that fails to build or to agree is reported and not
 timed), and its forward
 and backward timed there, the builds in turns (a, b, …, b, a), beside the
-card's name and power limit.
+card's name and power limit. ``--branch split`` or ``--branch tile``
+forces one branch of the kernels (by default each call takes the branch
+the rule picks: split at these shapes); every directory must then hold
+that branch's sources.
 
     python3 tools/torch_stream_variants.py build/v1/csrc noise_robust_vit_tpu_torch/ops/cuda/csrc
+    python3 tools/torch_stream_variants.py --branch split build/v1/csrc build/v2/csrc
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -36,17 +41,24 @@ def main(argv: list[str]) -> int:
         print("torch.cuda.is_available() is false: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    dirs = argv or [str(build.CSRC)]
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--branch", choices=("split", "tile"), default=None)
+    parser.add_argument("dirs", nargs="*")
+    args = parser.parse_args(argv)
+    branch = args.branch
+    dirs = args.dirs or [str(build.CSRC)]
     t0 = time.perf_counter()
     libs = {}
     for i, d in enumerate(dirs):
         try:
             libs[d] = build.open_library(build.build(Path(d), Path("build/variants") / f"v{i}"))
-        except RuntimeError as err:  # a variant that does not build is reported and left out
+        except (RuntimeError, AttributeError) as err:  # not built, or an entry missing
             print(f"build: {d} failed: {str(err)[-3000:]}", flush=True)
     dirs = [d for d in dirs if d in libs]
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(dirs)} source director"
           f"{'y' if len(dirs) == 1 else 'ies'}", flush=True)
+    if not dirs:
+        return 1
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     for label, shape in (("stage 1", chip_smoke.CVT_S1), ("stage 2", chip_smoke.CVT_S2)):
@@ -56,8 +68,9 @@ def main(argv: list[str]) -> int:
         want = (*want, *sa.streaming_attention_bwd_plain(q, k, v, g, *want[1:], scale))
         for d in dirs + dirs[::-1]:
             build.load_library = (lambda lib: (lambda: lib))(libs[d])
-            got = sa.streaming_attention_fwd_cuda(q, k, v, scale)
-            got = (*got, *sa.streaming_attention_bwd_cuda(q, k, v, g, *got[1:], scale))
+            got = sa.streaming_attention_fwd_cuda(q, k, v, scale, branch=branch)
+            got = (*got, *sa.streaming_attention_bwd_cuda(q, k, v, g, *got[1:], scale,
+                                                          branch=branch))
             torch.cuda.synchronize()
             try:
                 for i, (a, b) in enumerate(zip(got, want)):
@@ -68,9 +81,11 @@ def main(argv: list[str]) -> int:
                 print(f"{label} {list(shape)} {d}: check failed: {err}", flush=True)
                 continue
             av, bv = got[1:3]
-            fwd = chip_smoke.cuda_ms(lambda: sa.streaming_attention_fwd_cuda(q, k, v, scale), 10)
+            fwd = chip_smoke.cuda_ms(
+                lambda: sa.streaming_attention_fwd_cuda(q, k, v, scale, branch=branch), 10)
             bwd = chip_smoke.cuda_ms(
-                lambda: sa.streaming_attention_bwd_cuda(q, k, v, g, av, bv, scale), 10)
+                lambda: sa.streaming_attention_bwd_cuda(q, k, v, g, av, bv, scale,
+                                                        branch=branch), 10)
             print(f"{label} {list(shape)} {d}: fwd {fwd:.4f} ms bwd {bwd:.4f} ms", flush=True)
         del q, k, v, g, want, got
         torch.cuda.empty_cache()
