@@ -37,7 +37,8 @@ Phases, one line each (or a few):
               call's branch by its launch counts, and the shared-memory
               branch forced in bf16 at Swin-T stage 0; the square and rectangular
               logits-interface Sinkhorn kernels against theirs at
-              LeViT-128S's and LeViT-256's subsample logits, deepvit's
+              LeViT-128S's and LeViT-256's subsample logits, CvT-13 stage
+              3's [128, 6, 196, 49], deepvit's
               [128, 8, 197, 197], 196×196 (nest_tiny's N), ragged shapes and
               matrices held in a global scratch slot, out, residual rows and
               d logits, three schedules. float32: atol 1e-4, rtol 1e-3 (the
@@ -51,7 +52,10 @@ Phases, one line each (or a few):
               final), float32 and bfloat16, out, residual rows, d dots, d pre
               and d post (d pre and d post, sums over every image and entry,
               to 1e-4 of their largest magnitude in float32, 1e-3 in
-              bfloat16), and the bits of two runs at CaiT's shape; the
+              bfloat16), on both branches where the rule picks the cluster
+              one (the plane one forced), 16 heads on the plane branch, each
+              call's branch by its launch counts, and the bits of two runs
+              at CaiT's shape on each branch; the
               streaming kernels of both branches against theirs at CvT-13's
               stage 1 [128, 1, 3136 | 784, 64], stage 2 [128, 3, 784 | 196,
               64] and Twins-SVT-S's stage-1 global [16, 8, 3136 | 64, 64]
@@ -90,10 +94,11 @@ Phases, one line each (or a few):
               square); robust_softmax fwd+bwd
               on deepvit's square f32 logits [128, 8, 197, 197] (1 square
               launch each way: no ported model runs the square kernel yet);
-              small CaiT f32 robust (N = 49) card vs cpu (2 talking-heads
-              launches each way); 5 + 5 steps of CaiT @224 bf16 at batch 64
-              (6 talking-heads launches each way a robust step, 0 square and
-              0 rect; none vanilla); small CvT f32 robust at 112 px card vs
+              small CaiTs f32 robust (N = 49) card vs cpu (2 talking-heads
+              launches each way: at 4 heads all cluster, at 16 all plane);
+              5 + 5 steps of CaiT @224 bf16 at batch 64 (6 talking-heads
+              launches each way a robust step, all on the cluster branch, 0
+              square and 0 rect; none vanilla); small CvT f32 robust at 112 px card vs
               cpu in train mode (stage 1 streams: 1 streaming launch each
               way, on the tile branch, and 2 rect); 5 + 5 steps of CvT-13
               @224 bf16 at batch 64 (3 streaming launches each way a robust
@@ -126,10 +131,12 @@ Phases, one line each (or a few):
               vanilla yardstick, without dbias and with the bias's
               gradient; the shared-memory kernels alone at LeViT-128S's and
               LeViT-256's stage 0), and
-              [256, 8, 49, 196] (rect) and [128, 8, 197, 197] (square) f32
-              with torch.softmax as the vanilla counterpart, the
-              talking-heads kernels at CaiT's [128, 8, 196, 196] f32 beside
-              the vanilla sandwich (einsum, torch.softmax, einsum), and the
+              [256, 8, 49, 196] and [128, 6, 196, 49] (rect) and [128, 8,
+              197, 197] (square) f32 with torch.softmax as the vanilla
+              counterpart, the talking-heads kernels at CaiT's [128, 8, 196,
+              196] f32, the cluster and the plane branch in turns (the
+              cluster ones must be faster), beside the vanilla sandwich
+              (einsum, torch.softmax, einsum), and the
               streaming kernels at CvT-13's stages 1 and 2 bf16, the split
               and the tile branch in turns (the split ones must be faster),
               beside their plain versions, the vector form,
@@ -827,18 +834,21 @@ def phase_swin_v2(ba, torch, dev, batch=32):
 
 
 # The logits-interface kernels' checked shapes: LeViT-128S's subsample
-# logits at batch 256, LeViT-256's at batch 64, deepvit's square logits at
-# batch 128 (tools/dispatch_audit.jsonl), 196×196 at 3 and 4 heads
+# logits at batch 256, LeViT-256's at batch 64, CvT-13 stage 3's at batch
+# 128 (6 heads, 196 queries, 49 keys), deepvit's square logits at batch 128
+# (tools/dispatch_audit.jsonl), 196×196 at 3 and 4 heads
 # (nest_tiny's N), ragged ones (rows not a multiple of 4, nr > nc), and
 # matrices held in a global scratch slot (N above ~220)
 SQUARE_PATH = (128, 8, 197, 197)
+CVT_S3_RECT = (128, 6, 196, 49)
 SINKHORN_SHAPES = [("levit_128s sub0", (256, 8, 49, 196)), ("levit_128s sub1", (256, 16, 16, 49)),
                    ("levit_256 sub0", (64, 8, 49, 196)), ("levit_256 sub1", (64, 12, 16, 49)),
+                   ("cvt_13 stage 3", CVT_S3_RECT),
                    ("deepvit", SQUARE_PATH), ("square 196", (64, 4, 196, 196)),
                    ("square 196", (64, 3, 196, 196)),
                    ("ragged", (8, 3, 45, 45)), ("ragged", (8, 3, 33, 7)),
                    ("scratch", (4, 2, 640, 640)), ("scratch", (8, 300, 96))]
-SINKHORN_MAIN = {"square": "deepvit", "rect": "levit_128s"}
+SINKHORN_MAIN = {"square": ("deepvit",), "rect": ("levit_128s", "cvt_13")}
 
 
 def sinkhorn_pairs(ss, torch, logits, g, iters, final_row):
@@ -1024,8 +1034,9 @@ def phase_square_path(ss, torch, dev, shape=SQUARE_PATH):
 
 def phase_sinkhorn_times(ss, torch, dev):
     """Square and rectangular kernels in float32 (the dtype the models pass)
-    at [256, 8, 49, 196] (LeViT-128S subsample 0) and [128, 8, 197, 197]
-    (deepvit), robust (3, final), beside their plain versions and
+    at [256, 8, 49, 196] (LeViT-128S subsample 0), [128, 6, 196, 49]
+    (CvT-13 stage 3) and [128, 8, 197, 197] (deepvit), robust (3, final),
+    beside their plain versions and
     torch.softmax forward and backward on the same logits (the vanilla
     model's cost for the same step, not a library yardstick: no PyTorch
     call computes softmax + Sinkhorn, so library_ms is null). Each bound
@@ -1034,7 +1045,9 @@ def phase_sinkhorn_times(ss, torch, dev):
     rng = np.random.default_rng(24)
     times = {}
     fp, bp, nt = chain_passes(True, 3, True)
-    for kind, shape in (("rect", (256, 8, 49, 196)), ("square", SQUARE_PATH)):
+    for key, shape in (("rect", (256, 8, 49, 196)), ("rect cvt_13", CVT_S3_RECT),
+                       ("square", SQUARE_PATH)):
+        kind = key.split()[0]
         logits = 2 * device_normal(torch, dev, rng, shape)
         g = device_normal(torch, dev, rng, shape)
         if kind == "square":
@@ -1060,8 +1073,8 @@ def phase_sinkhorn_times(ss, torch, dev):
         nn = logits.numel()
         t["fwd_bound"], t["fwd_by"] = bound_ms(2 * mat + vec, 0, nn * (4 + 2 * fp))
         t["bwd_bound"], t["bwd_by"] = bound_ms(3 * mat + vec, 0, nn * (3 + 2 * bp + 4 + 2 * nt))
-        times[kind] = t
-        log(f"timing: sinkhorn_softmax {kind} f32 {list(shape)} (3, final) ms: fwd "
+        times[key] = t
+        log(f"timing: sinkhorn_softmax {key} f32 {list(shape)} (3, final) ms: fwd "
             f"{t['fwd']:.4f} (plain {t['fwd_plain']:.4f}, bound {t['fwd_bound']:.4f} "
             f"{t['fwd_by']}) bwd {t['bwd']:.4f} (plain {t['bwd_plain']:.4f}, bound "
             f"{t['bwd_bound']:.4f} {t['bwd_by']}); vanilla counterpart torch.softmax fwd "
@@ -1216,12 +1229,15 @@ def phase_profile(torch, dev, name, batch, rows=25, image=224, tag=""):
 
 # The talking-heads kernels' checked shapes: CaiT @224 at batch 128
 # (tools/dispatch_audit.jsonl), ragged N (197, 21), 16 heads; (label,
-# shape, dtypes)
+# shape, dtypes). Where the rule sends a shape to the cluster branch, both
+# branches are checked there (the plane one forced); 16 heads stay on the
+# plane branch.
 CAIT_TH = (128, 8, 196, 196)
 TH_SHAPES = [("cait", CAIT_TH, ("float32",)), ("cait", (16, 8, 196, 196), ("bfloat16",)),
              ("ragged", (16, 8, 197, 197), ("float32", "bfloat16")),
              ("ragged", (4, 4, 21, 21), ("float32", "bfloat16")),
              ("16 heads", (8, 16, 196, 196), ("float32",))]
+TH_SCHEDULES = ((3, True), (4, False))
 
 
 def th_inputs(torch, dev, rng, shape, dtype=None):
@@ -1234,135 +1250,169 @@ def th_inputs(torch, dev, rng, shape, dtype=None):
     return dots, g, pre, post
 
 
-def th_pairs(th, torch, dots, g, pre, post, iters, final_row):
-    """(kernel, plain) results of the talking-heads kernels on the same
-    inputs: out, vecs, d dots, d pre, d post."""
-    out_k, vecs_k = th.talking_heads_fwd_cuda(dots, pre, post, iters, final_row)
-    got = (out_k, vecs_k, *th.talking_heads_bwd_cuda(dots, g, vecs_k, pre, post, iters, final_row))
+def th_pairs(th, torch, dots, g, pre, post, iters, final_row, branch):
+    """(kernel, plain) results of the talking-heads kernels of ``branch`` on
+    the same inputs: out, vecs, d dots, d pre, d post (the plain d pre and
+    d post summed as the branch's kernels sum them)."""
+    out_k, vecs_k = th.talking_heads_fwd_cuda(dots, pre, post, iters, final_row, branch=branch)
+    got = (out_k, vecs_k, *th.talking_heads_bwd_cuda(dots, g, vecs_k, pre, post, iters, final_row,
+                                                     branch=branch))
     torch.cuda.synchronize()
+    strips = dots.shape[1] if branch == "cluster" else None
     out_p, vecs_p = th.talking_heads_fwd_plain(dots, pre, post, iters, final_row)
     want = (out_p, vecs_p, *th.talking_heads_bwd_plain(dots, g, vecs_p, pre, post, iters,
-                                                       final_row))
+                                                       final_row, strips=strips))
     torch.cuda.synchronize()
     return got, want
 
 
 def phase_th_kernels(th, torch, dev):
     """Talking-heads kernels against their plain versions at TH_SHAPES, both
-    schedules, (3, final) and (4, no final). float32: out, vecs and d dots
-    atol 1e-4, rtol 1e-3 (the sums run in another order and the reverse
-    chain amplifies it); d pre and d post, each entry a sum over every image
-    and n² entries (4.9 M products at CaiT's shape), to 1e-4 of the
-    tensor's largest magnitude. bfloat16 dots (math in float32): out and
+    schedules, (3, final) and (4, no final), on the branch the rule picks
+    and, where that is the cluster branch, on the plane branch forced too;
+    each call's branch shown by its launch counts. float32: out, vecs and
+    d dots atol 1e-4, rtol 1e-3 (the sums run in another order and the
+    reverse chain amplifies it); d pre and d post, each entry a sum over
+    every image and n² entries (4.9 M products at CaiT's shape), to 1e-4 of
+    the tensor's largest magnitude. bfloat16 dots (math in float32): out and
     d dots atol 2e-2 (one bf16 rounding of values of order one), vecs 1e-3,
     d pre and d post 1e-3 of their largest magnitude. Then two runs at
-    CaiT's shape give the same bits. Returns the largest float32 absolute
-    errors at CaiT's shape, (3, final): fwd (out), bwd (d dots, d pre,
-    d post)."""
-    worst = {"fwd": 0.0, "bwd": 0.0}
+    CaiT's shape give the same bits on each branch. Returns the largest
+    float32 absolute errors at CaiT's shape, (3, final), by branch: fwd
+    (out), bwd (d dots, d pre, d post)."""
+    worst = {br: {"fwd": 0.0, "bwd": 0.0} for br in th.BRANCHES}
     rng = np.random.default_rng(30)
     names = ["out", "vecs", "ddots", "dpre", "dpost"]
+    by_branch = {"cluster": th.launches_cluster, "plane": th.launches_plane}
     for label, shape, dtypes in TH_SHAPES:
         for dname in dtypes:
             dtype = getattr(torch, dname)
             bf16 = dtype == torch.bfloat16
             dots, g, pre, post = th_inputs(torch, dev, rng, shape, dtype)
-            for iters, final_row in ((3, True), (4, False)):
-                got, want = th_pairs(th, torch, dots, g, pre, post, iters, final_row)
-                errs = {nm: (a.float() - b.float()).abs().max().item()
-                        for nm, a, b in zip(names, got, want)}
-                rel = {nm: errs[nm] / want[i].abs().max().item()
-                       for i, nm in enumerate(names) if i >= 3}
-                log(f"kernels: talking_heads {label} {dname} {list(shape)} iters={iters} "
-                    f"final_row={int(final_row)} max_abs_err "
-                    + " ".join(f"{nm}={e:.3g}" for nm, e in errs.items())
-                    + " | of the largest " + " ".join(f"{nm}={e:.3g}" for nm, e in rel.items()))
-                for i, (nm, a, b) in enumerate(zip(names, got, want)):
-                    if i >= 3:
-                        if rel[nm] > (1e-3 if bf16 else 1e-4):
-                            raise RuntimeError(f"talking heads {nm}: {rel[nm]:.3g} of the "
-                                               f"largest magnitude")
-                    elif nm == "vecs":
-                        torch.testing.assert_close(a, b, atol=1e-3 if bf16 else 1e-4,
-                                                   rtol=1e-3, msg=nm)
-                    elif bf16:
-                        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=0,
-                                                   msg=nm)
-                    else:
-                        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=nm)
-                if shape == CAIT_TH and not bf16 and (iters, final_row) == (3, True):
-                    worst["fwd"] = errs["out"]
-                    worst["bwd"] = max(errs["ddots"], errs["dpre"], errs["dpost"])
-                    again = th_pairs(th, torch, dots, g, pre, post, iters, final_row)[0]
-                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                        raise RuntimeError("talking heads: two runs gave different bits")
-                    log(f"kernels: talking_heads {list(shape)} float32: two runs give the "
-                        f"same bits (out, vecs, d dots, d pre, d post)")
-                    del again
-                del got, want
+            rule = th.talking_heads_branch(shape, 3, dtype)
+            branches = ("cluster", "plane") if rule == "cluster" else ("plane",)
+            for branch in branches:
+                for iters, final_row in TH_SCHEDULES:
+                    for counts in by_branch.values():
+                        counts.reset()
+                    got, want = th_pairs(th, torch, dots, g, pre, post, iters, final_row, branch)
+                    ran = {br: (c.fwd, c.bwd) for br, c in by_branch.items()}
+                    if ran[branch] != (1, 1) or sum(map(sum, ran.values())) != 2:
+                        raise RuntimeError(f"talking heads {label} {branch}: launches {ran}")
+                    errs = {nm: (a.float() - b.float()).abs().max().item()
+                            for nm, a, b in zip(names, got, want)}
+                    rel = {nm: errs[nm] / want[i].abs().max().item()
+                           for i, nm in enumerate(names) if i >= 3}
+                    log(f"kernels: talking_heads {label} {dname} {list(shape)} {branch} "
+                        f"(rule: {rule}) iters={iters} final_row={int(final_row)} max_abs_err "
+                        + " ".join(f"{nm}={e:.3g}" for nm, e in errs.items())
+                        + " | of the largest "
+                        + " ".join(f"{nm}={e:.3g}" for nm, e in rel.items()))
+                    for i, (nm, a, b) in enumerate(zip(names, got, want)):
+                        if i >= 3:
+                            if rel[nm] > (1e-3 if bf16 else 1e-4):
+                                raise RuntimeError(f"talking heads {branch} {nm}: {rel[nm]:.3g} "
+                                                   f"of the largest magnitude")
+                        elif nm == "vecs":
+                            torch.testing.assert_close(a, b, atol=1e-3 if bf16 else 1e-4,
+                                                       rtol=1e-3, msg=nm)
+                        elif bf16:
+                            torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=0,
+                                                       msg=nm)
+                        else:
+                            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-3, msg=nm)
+                    if shape == CAIT_TH and not bf16 and (iters, final_row) == (3, True):
+                        worst[branch]["fwd"] = errs["out"]
+                        worst[branch]["bwd"] = max(errs["ddots"], errs["dpre"], errs["dpost"])
+                        again = th_pairs(th, torch, dots, g, pre, post, iters, final_row,
+                                         branch)[0]
+                        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                            raise RuntimeError(f"talking heads {branch}: two runs gave "
+                                               f"different bits")
+                        log(f"kernels: talking_heads {list(shape)} float32 {branch}: two runs "
+                            f"give the same bits (out, vecs, d dots, d pre, d post)")
+                        del again
+                    del got, want
             del dots, g, pre, post
             torch.cuda.empty_cache()
     return worst
 
 
 def phase_small_cait(th, torch, dev):
-    """The CaiT wiring through the talking-heads kernels: a small robust
-    float32 CaiT (image 56, patch 8: N = 49, ragged rows; dim 64, depth 2,
-    cls_depth 1, 4 heads) on the card against the same weights on the CPU:
-    logits (atol 1e-4, rtol 1e-3) and every parameter gradient (rtol 1e-3,
-    atol 1e-4 of each tensor's largest magnitude: the CLS stage's one query
-    row gives its to_q and to_kv tiny gradients). 2 talking-heads launches
-    each way on the card, none on the CPU."""
+    """The CaiT wiring through the talking-heads kernels: small robust
+    float32 CaiTs (image 56, patch 8: N = 49, ragged rows; dim 64, depth 2,
+    cls_depth 1) on the card against the same weights on the CPU: logits
+    (atol 1e-4, rtol 1e-3) and every parameter gradient (rtol 1e-3, atol
+    1e-4 of each tensor's largest magnitude: the CLS stage's one query row
+    gives its to_q and to_kv tiny gradients). 4 heads run the cluster
+    kernels, 16 heads the plane kernels: 2 launches each way on the card on
+    that branch, none on the other, none on the CPU. Returns the plane
+    branch's launches (the 16-head model's)."""
     from noise_robust_vit_tpu_torch import create_model
 
-    kw = dict(num_classes=10, image_size=56, patch_size=8, robust=True, dim=64, depth=2,
-              cls_depth=1, heads=4, mlp_dim=128)
-    cpu = create_model("cait", device="cpu", **kw)
-    gpu = create_model("cait", device=dev, **kw)
-    gpu.load_state_dict(cpu.state_dict())
-    rng = np.random.default_rng(31)
-    x = torch.from_numpy(rng.standard_normal((4, 56, 56, 3), dtype=np.float32))
-    y = torch.from_numpy(rng.integers(0, 10, size=4))
-    outs = []
-    for model, xx, yy in ((cpu, x, y), (gpu, x.to(dev), y.to(dev))):
-        th.launches.reset()
-        logits = model(xx)
-        torch.nn.functional.cross_entropy(logits.float(), yy).backward()
-        outs.append((logits.detach().cpu(), {k: p.grad.cpu() for k, p in model.named_parameters()},
-                     (th.launches.fwd, th.launches.bwd)))
-    if outs[0][2] != (0, 0) or outs[1][2] != (2, 2):
-        raise RuntimeError(f"small cait: launches cpu {outs[0][2]}, card {outs[1][2]}, "
-                           f"expected (0, 0) and (2, 2)")
-    torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-3)
-    err = 0.0
-    for k, g in outs[0][1].items():
-        scale = g.abs().max().item()
-        torch.testing.assert_close(outs[1][1][k], g, atol=1e-4 * scale, rtol=1e-3, msg=k)
-        err = max(err, (outs[1][1][k] - g).abs().max().item() / max(scale, 1e-30))
-    log(f"slice: small CaiT f32 robust card vs cpu: logits and grads agree (max grad err "
-        f"{err:.3g} of the tensor's largest magnitude), talking-heads launches 2/2 on the "
-        f"card, 0 on the cpu")
+    plane = {}
+    for heads, branch in ((4, "cluster"), (16, "plane")):
+        kw = dict(num_classes=10, image_size=56, patch_size=8, robust=True, dim=64, depth=2,
+                  cls_depth=1, heads=heads, mlp_dim=128)
+        cpu = create_model("cait", device="cpu", **kw)
+        gpu = create_model("cait", device=dev, **kw)
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(31)
+        x = torch.from_numpy(rng.standard_normal((4, 56, 56, 3), dtype=np.float32))
+        y = torch.from_numpy(rng.integers(0, 10, size=4))
+        outs = []
+        for model, xx, yy in ((cpu, x, y), (gpu, x.to(dev), y.to(dev))):
+            for counts in (th.launches, th.launches_cluster, th.launches_plane):
+                counts.reset()
+            logits = model(xx)
+            torch.nn.functional.cross_entropy(logits.float(), yy).backward()
+            mine = th.launches_cluster if branch == "cluster" else th.launches_plane
+            outs.append((logits.detach().cpu(),
+                         {k: p.grad.cpu() for k, p in model.named_parameters()},
+                         (th.launches.fwd, th.launches.bwd), (mine.fwd, mine.bwd)))
+        if outs[0][2] != (0, 0) or outs[1][2] != (2, 2) or outs[1][3] != (2, 2):
+            raise RuntimeError(f"small cait ({heads} heads): launches cpu {outs[0][2]}, card "
+                               f"{outs[1][2]} ({branch} {outs[1][3]}), expected (0, 0) and "
+                               f"(2, 2) all {branch}")
+        torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-3)
+        err = 0.0
+        for k, g in outs[0][1].items():
+            scale = g.abs().max().item()
+            torch.testing.assert_close(outs[1][1][k], g, atol=1e-4 * scale, rtol=1e-3, msg=k)
+            err = max(err, (outs[1][1][k] - g).abs().max().item() / max(scale, 1e-30))
+        log(f"slice: small CaiT f32 robust, {heads} heads, card vs cpu: logits and grads agree "
+            f"(max grad err {err:.3g} of the tensor's largest magnitude), talking-heads "
+            f"launches 2/2 on the card, all {branch}, 0 on the cpu")
+        if branch == "plane":
+            plane = {"fwd": outs[1][3][0], "bwd": outs[1][3][1]}
+    return plane
 
 
 def phase_th_times(th, torch, dev, shape=CAIT_TH):
-    """Talking-heads kernels at CaiT's float32 dots, robust (3, final),
-    beside their plain versions and the vanilla sandwich on the same inputs
-    (einsum, torch.softmax, einsum; its backward to dots and both mixes
-    through autograd): the vanilla model's cost for the same step, not a
-    library yardstick, since no PyTorch call computes the sandwich with
-    Sinkhorn (library_ms is null). Bounds from these inputs: the bytes each
-    direction must move once, and the float32 work of the TPU kernel's own
-    estimate, B·H·N²·(4 + 4·iters + 4·H) forward and
-    B·H·N²·(8 + 4·iters + 8·H) backward."""
+    """Talking-heads kernels at CaiT's float32 dots, robust (3, final): the
+    cluster and plane branches in turns (plane, cluster, cluster, plane;
+    the mean of each branch's two turns), beside their plain versions and
+    the vanilla sandwich on the same inputs (einsum, torch.softmax, einsum;
+    its backward to dots and both mixes through autograd): the vanilla
+    model's cost for the same step, not a library yardstick, since no
+    PyTorch call computes the sandwich with Sinkhorn (library_ms is null).
+    Bounds from these inputs: the bytes each direction must move once, and
+    the float32 work of the TPU kernel's own estimate,
+    B·H·N²·(4 + 4·iters + 4·H) forward and B·H·N²·(8 + 4·iters + 8·H)
+    backward. Returns each branch's times and the shared numbers."""
     h = shape[1]
     rng = np.random.default_rng(32)
     dots, g, pre, post = th_inputs(torch, dev, rng, shape)
     _, vecs = th.talking_heads_fwd_cuda(dots, pre, post)
-    t = {"fwd": cuda_ms(lambda: th.talking_heads_fwd_cuda(dots, pre, post), 20),
-         "fwd_plain": cuda_ms(lambda: th.talking_heads_fwd_plain(dots, pre, post), 5),
-         "bwd": cuda_ms(lambda: th.talking_heads_bwd_cuda(dots, g, vecs, pre, post), 20),
-         "bwd_plain": cuda_ms(lambda: th.talking_heads_bwd_plain(dots, g, vecs, pre, post), 5),
-         "fwd_lib": None, "bwd_lib": None}
+    turns = {br: {"fwd": [], "bwd": []} for br in th.BRANCHES}
+    for br in ("plane", "cluster", "cluster", "plane"):
+        turns[br]["fwd"].append(cuda_ms(
+            lambda: th.talking_heads_fwd_cuda(dots, pre, post, branch=br), 20))
+        turns[br]["bwd"].append(cuda_ms(
+            lambda: th.talking_heads_bwd_cuda(dots, g, vecs, pre, post, branch=br), 20))
+    shared = {"fwd_plain": cuda_ms(lambda: th.talking_heads_fwd_plain(dots, pre, post), 5),
+              "bwd_plain": cuda_ms(lambda: th.talking_heads_bwd_plain(dots, g, vecs, pre, post), 5),
+              "fwd_lib": None, "bwd_lib": None}
 
     def sandwich(d, p, q):
         return torch.einsum("bhij,hg->bgij",
@@ -1374,15 +1424,32 @@ def phase_th_times(th, torch, dev, shape=CAIT_TH):
     van_bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 20)
     mat, vec, mix = dots.numel() * 4, vecs.numel() * 4, 2 * h * h * 4
     nn = dots.numel()
-    t["fwd_bound"], t["fwd_by"] = bound_ms(2 * mat + vec + mix, 0, nn * (4 + 4 * 3 + 4 * h))
-    t["bwd_bound"], t["bwd_by"] = bound_ms(3 * mat + vec + 2 * mix, 0, nn * (8 + 4 * 3 + 8 * h))
-    log(f"timing: talking_heads f32 {list(shape)} (3, final) ms: fwd {t['fwd']:.4f} (plain "
-        f"{t['fwd_plain']:.4f}, bound {t['fwd_bound']:.4f} {t['fwd_by']}) bwd {t['bwd']:.4f} "
-        f"(plain {t['bwd_plain']:.4f}, bound {t['bwd_bound']:.4f} {t['bwd_by']}); vanilla "
-        f"sandwich (einsum, softmax, einsum) fwd {van_fwd:.4f} bwd {van_bwd:.4f}")
+    shared["fwd_bound"], shared["fwd_by"] = bound_ms(2 * mat + vec + mix, 0,
+                                                     nn * (4 + 4 * 3 + 4 * h))
+    shared["bwd_bound"], shared["bwd_by"] = bound_ms(3 * mat + vec + 2 * mix, 0,
+                                                     nn * (8 + 4 * 3 + 8 * h))
+    times = {}
+    for br in th.BRANCHES:
+        times[br] = dict(shared, fwd=sum(turns[br]["fwd"]) / 2, bwd=sum(turns[br]["bwd"]) / 2)
+        log(f"timing: talking_heads {br} f32 {list(shape)} (3, final) ms: fwd "
+            f"{times[br]['fwd']:.4f} (turns " + " ".join(f"{x:.4f}" for x in turns[br]["fwd"])
+            + f") bwd {times[br]['bwd']:.4f} (turns "
+            + " ".join(f"{x:.4f}" for x in turns[br]["bwd"]) + ")")
+    log(f"timing: talking_heads f32 {list(shape)} (3, final): plain fwd "
+        f"{shared['fwd_plain']:.4f} bwd {shared['bwd_plain']:.4f}; bound fwd "
+        f"{shared['fwd_bound']:.4f} {shared['fwd_by']} bwd {shared['bwd_bound']:.4f} "
+        f"{shared['bwd_by']}; vanilla sandwich (einsum, softmax, einsum) fwd {van_fwd:.4f} "
+        f"bwd {van_bwd:.4f}; cluster/plane fwd "
+        f"{times['cluster']['fwd'] / times['plane']['fwd']:.4f} bwd "
+        f"{times['cluster']['bwd'] / times['plane']['bwd']:.4f}")
+    for d in ("fwd", "bwd"):
+        if not times["cluster"][d] < times["plane"][d]:
+            raise RuntimeError(f"talking heads {d}: the cluster kernels ({times['cluster'][d]:.4f}"
+                               f" ms) are not faster than the plane kernels "
+                               f"({times['plane'][d]:.4f} ms)")
     del dots, g, pre, post, vecs, leaves, out
     torch.cuda.empty_cache()
-    return t
+    return times
 
 
 # The streaming kernels' checked shapes: CvT-13 @224 at batch 128, stage 1
@@ -2296,7 +2363,7 @@ def main() -> int:
     phase_small_model(torch, dev)
     phase_small_swin(ba, torch, dev)
     phase_small_levit(ba, ss, torch, dev)
-    phase_small_cait(th, torch, dev)
+    th_plane_launches = phase_small_cait(th, torch, dev)
     stream_tile_launches = phase_small_cvt(sa, ss, torch, dev)
     recompute_launches = phase_small_mobile_vit(fa, torch, dev)
     phase_small_fused_ln_model(fl, pa, torch, dev)
@@ -2347,13 +2414,16 @@ def main() -> int:
                                     "rect": 0, "square": 0, "fused": 0, "fused_ln": 0}})
     phase_levit_256(ba, ss, torch, dev)
     counts_sq = phase_square_path(ss, torch, dev)
-    cait_counts = {"talking_heads": th.launches, "square": ss.launches, "rect": ss.launches_rect,
-                   "fused": fa.launches, "fused_ln": fl.launches}
+    # every robust CaiT step runs its 6 + 6 talking-heads launches on the
+    # cluster branch
+    cait_counts = {"talking_heads": th.launches, "talking_heads_cluster": th.launches_cluster,
+                   "talking_heads_plane": th.launches_plane, "square": ss.launches,
+                   "rect": ss.launches_rect, "fused": fa.launches, "fused_ln": fl.launches}
     counts_t = phase_train(cait_counts, torch, dev, "cait",
-                           {True: {"talking_heads": 6, "square": 0, "rect": 0, "fused": 0,
-                                   "fused_ln": 0},
-                            False: {"talking_heads": 0, "square": 0, "rect": 0, "fused": 0,
-                                    "fused_ln": 0}})
+                           {r: {"talking_heads": 6 if r else 0,
+                                "talking_heads_cluster": 6 if r else 0, "talking_heads_plane": 0,
+                                "square": 0, "rect": 0, "fused": 0, "fused_ln": 0}
+                            for r in (True, False)})
     # every robust CvT-13 step runs its 3 + 3 streaming launches on the
     # split branch (bf16, D = 64)
     cvt_counts = {"streaming": sa.launches, "streaming_split": sa.launches_split,
@@ -2504,10 +2574,16 @@ def main() -> int:
         kernel_entry("sinkhorn_softmax_rect_bwd", "sinkhorn_softmax_bwd.cu",
                      "sinkhorn_softmax.py:537", counts_l["rect"]["bwd"] + counts_c["rect"]["bwd"],
                      worst_s["rect", "bwd"], stimes["rect"], "bwd"),
-        kernel_entry("talking_heads_fwd", "talking_heads_fwd.cu", "talking_heads.py:175",
-                     counts_t["talking_heads"]["fwd"], worst_t["fwd"], ttimes, "fwd"),
-        kernel_entry("talking_heads_bwd", "talking_heads_bwd.cu", "talking_heads.py:208",
-                     counts_t["talking_heads"]["bwd"], worst_t["bwd"], ttimes, "bwd"),
+        kernel_entry("talking_heads_cluster_fwd cait", "talking_heads_cluster_fwd.cu",
+                     "talking_heads.py:175", counts_t["talking_heads_cluster"]["fwd"],
+                     worst_t["cluster"]["fwd"], ttimes["cluster"], "fwd"),
+        kernel_entry("talking_heads_cluster_bwd cait", "talking_heads_cluster_bwd.cu",
+                     "talking_heads.py:208", counts_t["talking_heads_cluster"]["bwd"],
+                     worst_t["cluster"]["bwd"], ttimes["cluster"], "bwd"),
+        kernel_entry("talking_heads_fwd 16 heads", "talking_heads_fwd.cu", "talking_heads.py:175",
+                     th_plane_launches["fwd"], worst_t["plane"]["fwd"], ttimes["plane"], "fwd"),
+        kernel_entry("talking_heads_bwd 16 heads", "talking_heads_bwd.cu", "talking_heads.py:208",
+                     th_plane_launches["bwd"], worst_t["plane"]["bwd"], ttimes["plane"], "bwd"),
         kernel_entry("streaming_split_fwd cvt_13", "streaming_split_fwd.cu",
                      "streaming_sinkhorn.py:397", counts_c["streaming_split"]["fwd"],
                      worst_st["split"]["fwd"], sttimes["stage 1"]["split"], "fwd"),

@@ -87,6 +87,15 @@ _ENTRIES = {
     # dots, g, vecs, pre, post, ds, dpre, dpost, dm, part, dtype, B, H, N,
     # iters, final_row, stream
     "nrv_talking_heads_bwd": ([_VP] * 10 + [_I] * 6 + [_VP]),
+    # dots, pre, post, out, vecs, dtype, B, H, N, iters, final_row, stream
+    "nrv_talking_heads_cluster_fwd": ([_VP] * 5 + [_I] * 6 + [_VP]),
+    # dots, g, vecs, pre, post, ds, dpre, dpost, part, dtype, B, H, N, iters,
+    # final_row, stream
+    "nrv_talking_heads_cluster_bwd": ([_VP] * 9 + [_I] * 6 + [_VP]),
+    # dtype, H, N
+    "nrv_talking_heads_cluster_fwd_clusters": ([_I] * 3),
+    # dtype, H, N, iters, final_row
+    "nrv_talking_heads_cluster_bwd_clusters": ([_I] * 5),
     # q, k, v, out, av, bv, dtype, K, N, M, D, scale, iters, final_row, tq,
     # stream
     "nrv_streaming_attention_fwd": ([_VP] * 6 + [_I] * 5 + [_F] + [_I] * 3 + [_VP]),

@@ -51,14 +51,11 @@
 // smem formulas): change one, change the other.
 #pragma once
 
-#include <cooperative_groups.h>
-
+#include "cluster.cuh"
 #include "resident_warp.cuh"
 
 namespace nrv {
 namespace fres {
-
-namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -200,61 +197,14 @@ __device__ __forceinline__ WarpPos warp_pos(int K, int N, int rank, int unit) {
 // slots and adds them in rank order, so both blocks get the same bits. The
 // two buffers take turns: a block writes into a buffer again only after
 // the other block has sent the next exchange, which it does only after it
-// has read this buffer. The mbarriers are set up by exchange_init.
+// has read this buffer. The mbarriers are set up by exchange_init
+// (cluster.cuh).
 struct Xchg {
   float* buf;     // [2 buffers][2 ranks][n] floats
   uint64_t* bar;  // [2] mbarriers, one a buffer
   int cur = 0;
   uint32_t parity = 0;  // bit b: the phase the next wait on buffer b expects
 };
-
-// Thread 0 sets up `count` mbarriers (one arrival a phase); all threads of
-// both blocks then pass a cluster barrier, so no st.async can reach an
-// uninitialized mbarrier.
-__device__ __forceinline__ void exchange_init(uint64_t* bars, int count) {
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < count; ++i) hopper::mbar_init(&bars[i], 1);
-    hopper::fence_mbar_init();
-  }
-  cg::this_cluster().sync();
-}
-
-// The shared::cluster address of `p`'s counterpart in block `rank`.
-__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(hopper::smem_u32(p)), "r"(rank));
-  return r;
-}
-__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(addr),
-      "r"(__float_as_uint(v)), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
-      "[%5];\n" ::"r"(addr),
-      "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
-      "r"(__float_as_uint(v.w)), "r"(bar)
-      : "memory");
-}
-// Spin until the phase with parity `phase` has completed, with cluster-wide
-// acquire (the other block's st.async data are then visible).
-__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t phase) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}\n" ::"r"(hopper::smem_u32(bar)),
-      "r"(phase)
-      : "memory");
-}
-
 
 // The cluster part of a reduction: this block's `n` sums (T = float or
 // float4), sum(idx) for idx < n, exchanged as above; post(idx, total) for

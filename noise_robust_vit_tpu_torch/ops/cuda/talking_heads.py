@@ -19,9 +19,19 @@ Residuals: the dots, and one float32 stack ``vecs [B·H, R, N]`` per
 (image, mixed head) item, the square logits-interface layout (the a-rows,
 the b-rows, then lse). The backward recomputes ``m = premix(s)``.
 
+Two branches of kernels compute the function, chosen by shape before the
+call (``talking_heads_branch``): the cluster kernels
+(``csrc/talking_heads_cluster_{fwd,bwd}.cu``: one thread-block cluster an
+image, one block a head, the head mixes traded between the blocks through
+distributed shared memory; H ≤ 8, N ≤ 200) and the plane kernels
+(``csrc/talking_heads_{fwd,bwd}.cu``: one block an (image, mixed head)
+item; everything else the gate takes, 16 heads, N up to 228). Both keep the
+same residuals, so either backward takes either forward's.
+
 Three pieces live here, as in ``sinkhorn_softmax.py``: the plain PyTorch
-versions, the ctypes wrappers of ``csrc/talking_heads_{fwd,bwd}.cu`` with a
-launch count, and the autograd function ``TalkingHeadsSinkhorn``.
+versions, the ctypes wrappers of both branches with a launch count
+(``launches``, and by branch ``launches_cluster`` / ``launches_plane``),
+and the autograd function ``TalkingHeadsSinkhorn``.
 """
 
 from __future__ import annotations
@@ -35,6 +45,9 @@ from .sinkhorn_softmax import _bwd_math, _fwd_math
 __all__ = [
     "TalkingHeadsSinkhorn",
     "launches",
+    "launches_cluster",
+    "launches_plane",
+    "talking_heads_branch",
     "talking_heads_bwd",
     "talking_heads_bwd_cuda",
     "talking_heads_bwd_plain",
@@ -44,8 +57,9 @@ __all__ = [
     "talking_heads_supported",
 ]
 
-# Gate. Each (image, mixed head) item's N×N matrix lives in one block's
-# shared memory (csrc: talking_heads_{fwd,bwd}_smem_bytes, the matrix with
+# Gate, the plane kernels' budget (the cluster kernels take a subset). Each
+# (image, mixed head) item's N×N matrix lives in one block's shared memory
+# (csrc: talking_heads_{fwd,bwd}_smem_bytes, the matrix with
 # rows padded to 4 floats plus the forward's three vectors or the
 # backward's, bwd_vector_floats), within the 227 KB a block may use: N up
 # to 228 at 3 iterations. Shapes above take the unfused path, whose square
@@ -60,6 +74,16 @@ _STATIC_SMEM = 4096
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = LaunchCounts()
+launches_cluster = LaunchCounts()
+launches_plane = LaunchCounts()
+
+# The cluster branch (csrc/talking_heads_cluster.cuh: kMaxH, kMaxN, mirrored
+# here: change one, change the other). A cluster holds one block a head, at
+# most 8 (the portable cluster size); a block holds one N×N float32 plane
+# beside the backward's vectors at 8 iterations, which bounds N.
+CLUSTER_MAX_HEADS = 8
+CLUSTER_MAX_N = 200
+BRANCHES = ("cluster", "plane")
 
 
 def _smem_bytes(n: int, iters: int) -> int:
@@ -84,6 +108,16 @@ def talking_heads_supported(shape, num_iters: int, dtype=None) -> bool:
             and _smem_bytes(n, num_iters) <= _SMEM_LIMIT)
 
 
+def talking_heads_branch(shape, num_iters: int, dtype) -> str:
+    """The kernels a CUDA call of this shape and dtype goes to: "cluster"
+    (float32 or bfloat16, 1 ≤ H ≤ 8, 2 ≤ N ≤ 200, 1-8 iterations) or "plane"
+    (every other shape the gate takes)."""
+    if not talking_heads_supported(shape, num_iters, dtype):
+        return "plane"
+    h, n = shape[1], shape[2]
+    return "cluster" if h <= CLUSTER_MAX_HEADS and n <= CLUSTER_MAX_N else "plane"
+
+
 # --------------------------------------------------------------------------
 # plain PyTorch versions
 # --------------------------------------------------------------------------
@@ -103,12 +137,31 @@ def talking_heads_fwd_plain(dots, pre, post, iters=3, final_row=True):
     return y.to(dots.dtype), torch.cat(a_rows + b_rows + [lse_row], dim=1)
 
 
-def talking_heads_bwd_plain(dots, g, vecs, pre, post, iters=3, final_row=True):
+def _strip_rows(n: int, strips: int):
+    """Rows [k·n // strips, (k + 1)·n // strips) of strip k."""
+    return [(k * n // strips, (k + 1) * n // strips) for k in range(strips)]
+
+
+def _param_grad(eq: str, x, y, strips):
+    """``einsum(eq)`` over the images and entries to ``[H, H]``: at once
+    (``strips=None``), or as per-(image, strip) partials over each strip's
+    rows, summed over the images and then over the strips (the cluster
+    kernels' order)."""
+    if strips is None:
+        return torch.einsum(eq.replace("->b", "->"), x, y)
+    parts = [torch.einsum(eq, x[:, :, r0:r1], y[:, :, r0:r1])
+             for r0, r1 in _strip_rows(x.shape[2], strips)]
+    return torch.stack(parts).sum(1).sum(0)
+
+
+def talking_heads_bwd_plain(dots, g, vecs, pre, post, iters=3, final_row=True, strips=None):
     """Backward in eager torch from the stored stack: ``(d dots`` in the
     dots' dtype, ``d pre, d post`` float32 ``[H, H])``. Recomputes
     ``m = premix(s)``, forms ``gw = postmixᵀ(gy)``, runs the logits-interface
     backward to ``dm`` (and ``w``), then ``ds = premixᵀ(dm)``,
-    ``dpre = Σ s_h·dm_g`` and ``dpost = Σ w_g·gy_q``."""
+    ``dpre = Σ s_h·dm_g`` and ``dpost = Σ w_g·gy_q``. With ``strips``, d pre
+    and d post are summed as the cluster kernels sum them (strips of rows,
+    the kernels' count is H)."""
     b, h, n, _ = dots.shape
     s, gy = dots.float(), g.float()
     pre, post = pre.float(), post.float()
@@ -119,22 +172,20 @@ def talking_heads_bwd_plain(dots, g, vecs, pre, post, iters=3, final_row=True):
                       vecs[:, ka:ka + iters], vecs[:, -1], iters, final_row, want_out=True)
     dm, w = dm.reshape(b, h, n, n), w.reshape(b, h, n, n)
     ds = torch.einsum("bgij,hg->bhij", dm, pre)
-    dpre = torch.einsum("bhij,bgij->hg", s, dm)
-    dpost = torch.einsum("bgij,bqij->gq", w, gy)
+    dpre = _param_grad("bhij,bgij->bhg", s, dm, strips)
+    dpost = _param_grad("bgij,bqij->bgq", w, gy, strips)
     return ds.to(dots.dtype), dpre, dpost
 
 
 # --------------------------------------------------------------------------
-# CUDA kernels (csrc/talking_heads_{fwd,bwd}.cu)
+# CUDA kernels (csrc/talking_heads_cluster_{fwd,bwd}.cu, csrc/talking_heads_{fwd,bwd}.cu)
 # --------------------------------------------------------------------------
 
 def _check(name, t, like, dtype=None, shape=None):
     check_operand("talking heads", name, t, like, dtype, shape)
 
 
-def _check_inputs(dots, pre, post, iters):
-    if not dots.is_cuda:
-        raise ValueError("talking heads kernel: dots must be a CUDA tensor")
+def _check_inputs(dots, pre, post, iters, branch):
     if dots.dtype not in _DTYPE_CODES:
         raise TypeError(f"talking heads kernel: dtype {dots.dtype} not in "
                         f"{list(_DTYPE_CODES)}")
@@ -145,60 +196,85 @@ def _check_inputs(dots, pre, post, iters):
     h = dots.shape[1]
     _check("pre", pre, dots, torch.float32, (h, h))
     _check("post", post, dots, torch.float32, (h, h))
-    return dots.shape[:3]
+    rule = talking_heads_branch(dots.shape, iters, dots.dtype)
+    chosen = branch or rule
+    if chosen not in BRANCHES:
+        raise ValueError(f"talking heads kernel: no branch {chosen!r}")
+    if chosen == "cluster" and rule != "cluster":
+        raise ValueError(f"talking heads kernel: the cluster branch does not take "
+                         f"{tuple(dots.shape)} {dots.dtype}")
+    if not dots.is_cuda:
+        raise ValueError("talking heads kernel: dots must be a CUDA tensor")
+    return (*dots.shape[:3], chosen)
 
 
-def talking_heads_fwd_cuda(dots, pre, post, iters=3, final_row=True):
-    """Launch the forward kernels; returns ``(out, vecs)`` like the plain
-    version. ``pre`` and ``post`` float32. Raises on anything the kernels do
-    not take."""
+def _count(chosen, direction):
+    for c in (launches, launches_cluster if chosen == "cluster" else launches_plane):
+        setattr(c, direction, getattr(c, direction) + 1)
+
+
+def talking_heads_fwd_cuda(dots, pre, post, iters=3, final_row=True, branch=None):
+    """Launch the forward kernels of the branch ``talking_heads_branch``
+    picks (or ``branch``); returns ``(out, vecs)`` like the plain version.
+    ``pre`` and ``post`` float32. Raises on anything the kernels do not
+    take."""
     from .build import load_library
 
-    b, h, n = _check_inputs(dots, pre, post, iters)
+    b, h, n, chosen = _check_inputs(dots, pre, post, iters, branch)
     out = torch.empty_like(dots)
     vecs = torch.empty(b * h, num_vecs(iters, final_row, True), n, dtype=torch.float32,
                        device=dots.device)
-    w = torch.empty(dots.shape, dtype=torch.float32, device=dots.device)
+    cfg = (_DTYPE_CODES[dots.dtype], b, h, n, int(iters), int(final_row), stream(dots.device))
     with torch.cuda.device(dots.device):
-        err = load_library().nrv_talking_heads_fwd(
-            ptr(dots), ptr(pre), ptr(post), ptr(out), ptr(vecs), ptr(w),
-            _DTYPE_CODES[dots.dtype], b, h, n, int(iters), int(final_row),
-            stream(dots.device))
-    raise_on(err, "talking heads forward kernel")
-    launches.fwd += 1
+        if chosen == "cluster":
+            err = load_library().nrv_talking_heads_cluster_fwd(
+                ptr(dots), ptr(pre), ptr(post), ptr(out), ptr(vecs), *cfg)
+        else:
+            w = torch.empty(dots.shape, dtype=torch.float32, device=dots.device)
+            err = load_library().nrv_talking_heads_fwd(
+                ptr(dots), ptr(pre), ptr(post), ptr(out), ptr(vecs), ptr(w), *cfg)
+    raise_on(err, f"talking heads forward kernel ({chosen})")
+    _count(chosen, "fwd")
     return out, vecs
 
 
-def talking_heads_bwd_cuda(dots, g, vecs, pre, post, iters=3, final_row=True):
-    """Launch the backward kernels; returns ``(d dots, d pre, d post)``."""
+def talking_heads_bwd_cuda(dots, g, vecs, pre, post, iters=3, final_row=True, branch=None):
+    """Launch the backward kernels of the branch, as the forward (either
+    forward's ``vecs`` will do); returns ``(d dots, d pre, d post)``."""
     from .build import load_library
 
-    b, h, n = _check_inputs(dots, pre, post, iters)
+    b, h, n, chosen = _check_inputs(dots, pre, post, iters, branch)
     _check("g", g, dots, shape=dots.shape)
     _check("vecs", vecs, dots, torch.float32, (b * h, num_vecs(iters, final_row, True), n))
     ds = torch.empty_like(dots)
     dpre = torch.empty(h, h, dtype=torch.float32, device=dots.device)
     dpost = torch.empty_like(dpre)
-    dm = torch.empty(dots.shape, dtype=torch.float32, device=dots.device)
-    part = torch.empty(2, b * h, h, dtype=torch.float32, device=dots.device)
+    cfg = (_DTYPE_CODES[dots.dtype], b, h, n, int(iters), int(final_row), stream(dots.device))
     with torch.cuda.device(dots.device):
-        err = load_library().nrv_talking_heads_bwd(
-            ptr(dots), ptr(g), ptr(vecs), ptr(pre), ptr(post), ptr(ds), ptr(dpre), ptr(dpost),
-            ptr(dm), ptr(part), _DTYPE_CODES[dots.dtype], b, h, n, int(iters), int(final_row),
-            stream(dots.device))
-    raise_on(err, "talking heads backward kernel")
-    launches.bwd += 1
+        if chosen == "cluster":
+            part = torch.empty(2, b, h, h * h, dtype=torch.float32, device=dots.device)
+            err = load_library().nrv_talking_heads_cluster_bwd(
+                ptr(dots), ptr(g), ptr(vecs), ptr(pre), ptr(post), ptr(ds), ptr(dpre),
+                ptr(dpost), ptr(part), *cfg)
+        else:
+            dm = torch.empty(dots.shape, dtype=torch.float32, device=dots.device)
+            part = torch.empty(2, b * h, h, dtype=torch.float32, device=dots.device)
+            err = load_library().nrv_talking_heads_bwd(
+                ptr(dots), ptr(g), ptr(vecs), ptr(pre), ptr(post), ptr(ds), ptr(dpre),
+                ptr(dpost), ptr(dm), ptr(part), *cfg)
+    raise_on(err, f"talking heads backward kernel ({chosen})")
+    _count(chosen, "bwd")
     return ds, dpre, dpost
 
 
 def talking_heads_fwd(dots, pre, post, iters=3, final_row=True):
     return by_device(talking_heads_fwd_cuda, talking_heads_fwd_plain, dots, pre, post, iters,
-                      final_row)
+                     final_row)
 
 
 def talking_heads_bwd(dots, g, vecs, pre, post, iters=3, final_row=True):
     return by_device(talking_heads_bwd_cuda, talking_heads_bwd_plain, dots, g, vecs, pre, post,
-                      iters, final_row)
+                     iters, final_row)
 
 
 class TalkingHeadsSinkhorn(torch.autograd.Function):

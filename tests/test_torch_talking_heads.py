@@ -9,8 +9,8 @@ and upstream gradient. Tolerances, float32, the JAX suite's own
 (``tests/test_talking_heads.py``): values atol 2e-6 / rtol 2e-5, gradients
 atol and rtol 5e-5.
 
-The ``gpu`` cases compare the CUDA kernels with the plain versions on the
-card and skip where there is none. JAX is imported only by the tests that
+The ``gpu`` cases compare the CUDA kernels of both branches (cluster and
+plane) with the plain versions on the card and skip where there is none. JAX is imported only by the tests that
 compare with it, so the file also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_talking_heads.py -m gpu
@@ -193,6 +193,78 @@ def test_gate_agrees_with_jax_where_both_budgets_allow(jx):
     assert not jx.th.talking_heads_supported((8, 16, 196, 196), 3)
 
 
+@pytest.mark.parametrize("schedule", SCHEDULES, ids=SCHEDULE_IDS)
+@pytest.mark.parametrize("n", [21, 24])
+def test_plain_strips_match_jax_grad(jx, n, schedule):
+    """The plain backward with ``strips=H``, d pre and d post summed as the
+    cluster kernels sum them (per-(image, strip) partials, then the images,
+    then the strips), against ``jax.grad`` of the interpret-mode kernel."""
+    iters, final_row = schedule
+    dots, pre, post, tang = _inputs(11, n=n)
+
+    def loss(d, p, q):
+        return jx.jnp.sum(jx.th.talking_heads_sinkhorn(d, p, q, iters, final_row, True)
+                          * jx.jnp.asarray(tang))
+
+    want = jx.jax.grad(loss, argnums=(0, 1, 2))(*map(jx.jnp.asarray, (dots, pre, post)))
+    d, p, q = map(torch.from_numpy, (dots, pre, post))
+    _, vecs = th.talking_heads_fwd_plain(d, p, q, iters, final_row)
+    got = th.talking_heads_bwd_plain(d, torch.from_numpy(tang), vecs, p, q, iters, final_row,
+                                     strips=dots.shape[1])
+    for name, g, w in zip(("ddots", "dpre", "dpost"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=name, **GRADS)
+
+
+@pytest.mark.parametrize("strips", [1, 4, 5], ids=["one", "H", "ragged"])
+def test_plain_strips_sum_like_unsplit(strips):
+    """Strips change only the order of d pre's and d post's sums: d dots is
+    the same tensor, and the parameter gradients agree within rounding (5
+    strips of 21 rows are 4, 4, 4, 4 and 5 rows)."""
+    dots, pre, post, tang = (torch.from_numpy(a) for a in _inputs(12, h=4, n=21))
+    _, vecs = th.talking_heads_fwd_plain(dots, pre, post)
+    want = th.talking_heads_bwd_plain(dots, tang, vecs, pre, post)
+    got = th.talking_heads_bwd_plain(dots, tang, vecs, pre, post, strips=strips)
+    assert torch.equal(got[0], want[0])
+    for name, g, w in zip(("dpre", "dpost"), got[1:], want[1:]):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5, msg=name)
+
+
+@pytest.mark.parametrize("shape,iters,dtype,want", [
+    ((128, 8, 196, 196), 3, torch.float32, "cluster"),   # CaiT @224
+    ((128, 8, 196, 196), 3, torch.bfloat16, "cluster"),
+    ((16, 8, 197, 197), 8, torch.float32, "cluster"),    # ragged N at 8 iterations
+    ((8, 16, 196, 196), 3, torch.float32, "plane"),      # 16 heads
+    ((2, 8, 201, 201), 3, torch.float32, "plane"),       # N above the cluster limit
+    ((2, 2, 224, 224), 4, torch.bfloat16, "plane"),
+    ((5, 1, 7, 7), 3, torch.float32, "cluster"),         # one head
+    ((4, 4, 2, 2), 1, torch.float32, "cluster"),         # the smallest N
+    ((2, 4, 21, 21), 3, torch.float16, "plane"),         # outside the gate
+], ids=["cait-f32", "cait-bf16", "197", "16-heads", "201", "224", "one-head", "n2", "f16"])
+def test_branch_rule(shape, iters, dtype, want):
+    """The cluster branch takes float32 and bf16 at 1-8 heads and N up to
+    200 (one plane a block at 8 iterations); the plane branch the rest of
+    the gate."""
+    assert th.talking_heads_branch(shape, iters, dtype) == want
+
+
+def test_cuda_wrapper_refuses_forced_branch_outside_its_rule():
+    """A forced ``branch="cluster"`` outside the rule raises in both
+    directions before anything is launched; so does a branch that does not
+    exist. Inside the rule, either branch gets as far as the device check."""
+    dots, pre, post, g = (torch.from_numpy(a) for a in _inputs(13, b=1, h=16, n=8))
+    _, vecs = th.talking_heads_fwd_plain(dots, pre, post)
+    with pytest.raises(ValueError, match="cluster branch does not take"):
+        th.talking_heads_fwd_cuda(dots, pre, post, branch="cluster")
+    with pytest.raises(ValueError, match="cluster branch does not take"):
+        th.talking_heads_bwd_cuda(dots, g, vecs, pre, post, branch="cluster")
+    dots, pre, post, _ = (torch.from_numpy(a) for a in _inputs(13, b=1, h=4, n=8))
+    with pytest.raises(ValueError, match="no branch"):
+        th.talking_heads_fwd_cuda(dots, pre, post, branch="resident")
+    for branch in th.BRANCHES:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            th.talking_heads_fwd_cuda(dots, pre, post, branch=branch)
+
+
 def test_cuda_wrapper_refuses_cpu_tensor():
     dots, pre, post, _ = (torch.from_numpy(a) for a in _inputs(6, n=8))
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -210,12 +282,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _kernel_vs_plain(dots, g, pre, post, iters, final_row):
-    """(kernel, plain) results: (out, vecs, ds, dpre, dpost)."""
-    out_k, vecs_k = th.talking_heads_fwd_cuda(dots, pre, post, iters, final_row)
-    grads_k = th.talking_heads_bwd_cuda(dots, g, vecs_k, pre, post, iters, final_row)
+def _kernel_vs_plain(dots, g, pre, post, iters, final_row, branch=None):
+    """(kernel, plain) results: (out, vecs, ds, dpre, dpost). The plain
+    backward sums d pre and d post as the branch's kernels do."""
+    out_k, vecs_k = th.talking_heads_fwd_cuda(dots, pre, post, iters, final_row, branch=branch)
+    grads_k = th.talking_heads_bwd_cuda(dots, g, vecs_k, pre, post, iters, final_row,
+                                        branch=branch)
+    chosen = branch or th.talking_heads_branch(dots.shape, iters, dots.dtype)
+    strips = dots.shape[1] if chosen == "cluster" else None
     out_p, vecs_p = th.talking_heads_fwd_plain(dots, pre, post, iters, final_row)
-    grads_p = th.talking_heads_bwd_plain(dots, g, vecs_p, pre, post, iters, final_row)
+    grads_p = th.talking_heads_bwd_plain(dots, g, vecs_p, pre, post, iters, final_row,
+                                         strips=strips)
     torch.cuda.synchronize()
     return (out_k, vecs_k, *grads_k), (out_p, vecs_p, *grads_p)
 
@@ -252,51 +329,118 @@ def _card_inputs(cuda, seed, shape, dtype=torch.float32):
 # one head
 CARD_SHAPES = [(4, 8, 196, 196), (4, 8, 197, 197), (3, 4, 21, 21), (2, 16, 196, 196),
                (2, 2, 224, 224), (5, 1, 7, 7)]
+# every card shape on the plane branch (forced), and on the cluster branch
+# where the rule sends it there (the rule does not depend on the dtype)
+CARD_CASES = [(shape, branch) for shape in CARD_SHAPES for branch in th.BRANCHES
+              if branch == "plane" or th.talking_heads_branch(shape, 4, torch.float32) == branch]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("schedule", SCHEDULES, ids=SCHEDULE_IDS)
-@pytest.mark.parametrize("shape", CARD_SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_kernel_matches_plain(cuda, shape, schedule, dtype):
+@pytest.mark.parametrize("shape,branch", CARD_CASES,
+                         ids=["x".join(map(str, s)) + "-" + b for s, b in CARD_CASES])
+def test_kernel_matches_plain(cuda, shape, branch, schedule, dtype):
     dots, g, pre, post = _card_inputs(cuda, 7, shape, dtype)
-    _assert_kernel_matches(*_kernel_vs_plain(dots, g, pre, post, *schedule))
+    _assert_kernel_matches(*_kernel_vs_plain(dots, g, pre, post, *schedule, branch=branch))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("branch", th.BRANCHES)
 @pytest.mark.parametrize("final_row", [False, True])
 @pytest.mark.parametrize("iters", [1, 2, 8])
-def test_kernel_matches_plain_at_every_iteration_count(cuda, iters, final_row):
+def test_kernel_matches_plain_at_every_iteration_count(cuda, iters, final_row, branch):
     dots, g, pre, post = _card_inputs(cuda, 8, (2, 8, 196, 196))
-    _assert_kernel_matches(*_kernel_vs_plain(dots, g, pre, post, iters, final_row))
+    _assert_kernel_matches(*_kernel_vs_plain(dots, g, pre, post, iters, final_row,
+                                             branch=branch))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(16, 8, 196, 196), (4, 16, 197, 197)])
-def test_kernel_repeats_bit_for_bit(cuda, shape):
-    """No atomics: d pre and d post are summed through per-item partials in
-    a fixed order, so two runs give the same bits."""
+@pytest.mark.parametrize("shape,branch", [((16, 8, 196, 196), "plane"),
+                                          ((4, 16, 197, 197), "plane"),
+                                          ((16, 8, 196, 196), "cluster"),
+                                          ((4, 8, 197, 197), "cluster")])
+def test_kernel_repeats_bit_for_bit(cuda, shape, branch):
+    """No atomics: d pre and d post are summed through partials in a fixed
+    order (per item on the plane branch, per (image, strip) on the cluster
+    branch), so two runs give the same bits."""
     inputs = _card_inputs(cuda, 9, shape)
-    first = _kernel_vs_plain(*inputs, 3, True)[0]
-    again = _kernel_vs_plain(*inputs, 3, True)[0]
+    first = _kernel_vs_plain(*inputs, 3, True, branch=branch)[0]
+    again = _kernel_vs_plain(*inputs, 3, True, branch=branch)[0]
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", SCHEDULES, ids=SCHEDULE_IDS)
+@pytest.mark.parametrize("fwd_branch,bwd_branch", [("plane", "cluster"), ("cluster", "plane")])
+def test_residuals_cross_branches(cuda, fwd_branch, bwd_branch, schedule):
+    """Both branches store the same residual rows: either backward takes
+    the other forward's, and both forwards agree."""
+    dots, g, pre, post = _card_inputs(cuda, 14, (4, 8, 196, 196))
+    out_k, vecs_k = th.talking_heads_fwd_cuda(dots, pre, post, *schedule, branch=fwd_branch)
+    grads_k = th.talking_heads_bwd_cuda(dots, g, vecs_k, pre, post, *schedule, branch=bwd_branch)
+    out_p, vecs_p = th.talking_heads_fwd_plain(dots, pre, post, *schedule)
+    strips = 8 if bwd_branch == "cluster" else None
+    grads_p = th.talking_heads_bwd_plain(dots, g, vecs_p, pre, post, *schedule, strips=strips)
+    torch.cuda.synchronize()
+    _assert_kernel_matches((out_k, vecs_k, *grads_k), (out_p, vecs_p, *grads_p))
+
+
+@pytest.mark.gpu
+def test_cluster_library_refuses_outside_its_rule(cuda):
+    """The C entry points refuse what ``talking_heads_branch`` keeps off
+    the cluster branch (16 and 9 heads, N = 201, 9 iterations), so the two
+    rules agree at their edges."""
+    from noise_robust_vit_tpu_torch.ops.cuda import build
+
+    lib = build.load_library()
+    assert lib.nrv_talking_heads_cluster_fwd_clusters(0, 8, 196) >= 1
+    assert lib.nrv_talking_heads_cluster_bwd_clusters(0, 8, 200, 8, 1) >= 1
+    for h, n, iters in ((16, 196, 3), (8, 201, 3), (8, 196, 9), (9, 196, 3)):
+        assert lib.nrv_talking_heads_cluster_bwd_clusters(0, h, n, iters, 1) == -1
+    for h, n in ((1, 2), (8, 200)):
+        assert th.talking_heads_branch((1, h, n, n), 8, torch.float32) == "cluster"
+        assert lib.nrv_talking_heads_cluster_fwd_clusters(1, h, n) >= 1
 
 
 @pytest.mark.gpu
 def test_autograd_on_card_launches_kernels(cuda):
     """``talking_heads_robust_softmax`` on CUDA dots goes through one
-    forward and one backward launch, and agrees with the CPU path."""
+    forward and one backward launch, on the cluster branch at 4 heads, and
+    agrees with the CPU path."""
     dots, pre, post, g = _inputs(10, 2, 4, 49)
     cpu = [torch.from_numpy(a).requires_grad_(True) for a in (dots, pre, post)]
     want = ops.talking_heads_robust_softmax(*cpu, robust=True)
     want.backward(torch.from_numpy(g))
-    th.launches.reset()
+    for counts in (th.launches, th.launches_cluster, th.launches_plane):
+        counts.reset()
     card = [torch.from_numpy(a).to(cuda).requires_grad_(True) for a in (dots, pre, post)]
     out = ops.talking_heads_robust_softmax(*card, robust=True)
     out.backward(torch.from_numpy(g).to(cuda))
     torch.cuda.synchronize()
     assert (th.launches.fwd, th.launches.bwd) == (1, 1)
+    assert (th.launches_cluster.fwd, th.launches_cluster.bwd) == (1, 1)
+    assert (th.launches_plane.fwd, th.launches_plane.bwd) == (0, 0)
     np.testing.assert_allclose(out.detach().cpu().numpy(), want.detach().numpy(),
                                atol=1e-4, rtol=1e-3)
     for a, b in zip(card, cpu):
         np.testing.assert_allclose(a.grad.cpu().numpy(), b.grad.numpy(), atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,n,branch", [(8, 196, "cluster"), (1, 7, "cluster"),
+                                        (16, 20, "plane"), (2, 210, "plane")])
+def test_autograd_launch_counts_by_branch(cuda, h, n, branch):
+    """Each robust call launches one forward and one backward, on the branch
+    the rule picks and on no other."""
+    dots, pre, post, g = _inputs(15, 2, h, n)
+    for counts in (th.launches, th.launches_cluster, th.launches_plane):
+        counts.reset()
+    card = [torch.from_numpy(a).to(cuda).requires_grad_(True) for a in (dots, pre, post)]
+    ops.talking_heads_robust_softmax(*card, robust=True).backward(torch.from_numpy(g).to(cuda))
+    torch.cuda.synchronize()
+    mine = th.launches_cluster if branch == "cluster" else th.launches_plane
+    other = th.launches_plane if branch == "cluster" else th.launches_cluster
+    assert (th.launches.fwd, th.launches.bwd) == (1, 1)
+    assert (mine.fwd, mine.bwd) == (1, 1)
+    assert (other.fwd, other.bwd) == (0, 0)
