@@ -47,8 +47,8 @@ _ENTRIES = {
     # qkv, out, vecs, B, N, H, D, scale, robust, iters, final_row, grid,
     # stream
     "nrv_packed_resident_fwd": ([_VP] * 3 + [_I] * 4 + [_F] + [_I] * 4 + [_VP]),
-    # qkv, dout, vecs, dqkv, terms, B, N, H, D, scale, robust, iters,
-    # final_row, grid, stream
+    # qkv, dout, vecs, dqkv, terms (unused: null), B, N, H, D, scale, robust,
+    # iters, final_row, grid, stream
     "nrv_packed_resident_bwd": ([_VP] * 5 + [_I] * 4 + [_F] + [_I] * 4 + [_VP]),
     # N, D
     "nrv_packed_resident_fits": ([_I] * 2),

@@ -1,11 +1,13 @@
 // Thread-block cluster pieces shared by the kernels whose blocks exchange
 // data through distributed shared memory: the fused q/k/v resident kernels
-// (fused_resident.cuh, clusters of two) and the talking-heads cluster
-// kernels (talking_heads_cluster.cuh, a cluster of one block a head):
-// the shared::cluster address of a block's shared memory (mapa), stores
-// into another block's shared memory that complete its mbarrier's byte
-// count (st.async), the wait on such an mbarrier with cluster-wide acquire,
-// and the set-up of mbarriers before any block of the cluster sends.
+// (fused_resident.cuh, clusters of two), the talking-heads cluster kernels
+// (talking_heads_cluster.cuh, a cluster of one block a head) and the packed
+// resident backward (packed_resident_bwd.cu, clusters of two): the
+// shared::cluster address of a block's shared memory (mapa), stores into
+// another block's shared memory that complete its mbarrier's byte count
+// (st.async), an arrival on another block's mbarrier, the wait on such an
+// mbarrier with cluster-wide acquire, and the set-up of mbarriers before
+// any block of the cluster sends.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -49,6 +51,12 @@ __device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) 
       "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
       "r"(__float_as_uint(v.w)), "r"(bar)
       : "memory");
+}
+// One arrival on the mbarrier at shared::cluster address `addr` (another
+// block's), releasing this thread's earlier accesses at cluster scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
 }
 // st_async when `pred` holds, as one predicated instruction (no branch).
 __device__ __forceinline__ void st_async_if(bool pred, uint32_t addr, float v, uint32_t bar) {

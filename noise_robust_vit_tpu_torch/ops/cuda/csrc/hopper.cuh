@@ -6,9 +6,10 @@
 //   * mbarriers that a TMA copy completes (expect_tx + complete_tx);
 //   * the 3-D TMA load, which zero-fills rows past the last token;
 //   * wgmma descriptors of a tile with the 128-byte swizzle, wgmma
-//     m64n200k16 with both operands K-major in shared memory, and wgmma
-//     m64n64k16 with A from registers and B read MN-major (bf16 in,
-//     float32 accumulators);
+//     m64n200k16 and m64n40k16 with both operands K-major in shared memory,
+//     and wgmma m64n64k16 with A from registers or K-major in shared memory
+//     and B read MN-major (bf16 in, float32 accumulators);
+//   * stmatrix's transposed stores of 8×8 bf16 blocks from registers;
 //   * the bf16 hi + lo split of a float32 operand.
 //
 // Layout of an operand buffer: 64 bf16 columns a row (128 bytes, one
@@ -62,6 +63,11 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// One arrival, no transaction bytes.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // Spin until the phase with parity `phase` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t phase) {
   asm volatile(
@@ -113,6 +119,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most `Pending` committed groups are still in flight.
+template <int Pending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(Pending) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of an accumulator, or of
@@ -185,6 +196,71 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d[0..31] += A·B for a 64×16 bf16 A read K-major through desc_a and a
+// 16×64 bf16 B read MN-major (transposed) through desc_b.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[0..19] += A·Bᵀ for a 64×16 A and a 40×16 B, both K-major bf16.
+__device__ __forceinline__ void wgmma_m64n40k16(float (&d)[20], uint64_t desc_a,
+                                               uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19"
+      "}, %20, %21, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// ---- stmatrix ----------------------------------------------------------------
+
+// Four (x4) or two (x2) 8×8 b16 matrices stored as they are or transposed
+// (trans): register m of each lane holds its fragment of matrix m (row
+// lane / 4, columns 2·(lane % 4) + {0, 1}); lane 8m + r gives the address
+// of row r of matrix m as stored (16 bytes), which is column r of the
+// fragment's matrix when transposed.
+__device__ __forceinline__ void stmatrix_x4_trans(void* row, uint32_t r0, uint32_t r1,
+                                                  uint32_t r2, uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_u32(row)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+__device__ __forceinline__ void stmatrix_x4(void* row, uint32_t r0, uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_u32(row)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+__device__ __forceinline__ void stmatrix_x2_trans(void* row, uint32_t r0, uint32_t r1) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x2.trans.shared.b16 [%0], {%1, %2};\n" ::"r"(
+                   smem_u32(row)),
+               "r"(r0), "r"(r1)
+               : "memory");
 }
 
 // ---- split operands --------------------------------------------------------

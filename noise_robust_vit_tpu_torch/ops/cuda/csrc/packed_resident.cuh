@@ -1,12 +1,14 @@
 // Shared parts of the packed-qkv attention kernels of the resident branch
-// (packed_resident_{fwd,bwd}.cu): bf16, D = 64, N ≤ kMaxN. One persistent
-// block per SM takes one (image, head) item at a time and holds the item's
-// N×N float32 matrix in shared memory; q, k, v, dout arrive by TMA into
-// 128-byte-swizzled operand buffers (hopper.cuh); q·kᵀ and G·Vᵀ run on
-// wgmma m64n200k16 with both operands exact bf16; the products with the
-// float32 matrix run on wgmma m64n64k16 with the matrix side split into
-// bf16 hi + lo in registers (two MMAs, about 2^-17 relative) and the bf16
-// side read MN-major from the swizzled buffer.
+// (packed_resident_{fwd,bwd}.cu): bf16, D = 64, N ≤ kMaxN. q, k, v, dout
+// arrive by TMA into 128-byte-swizzled operand buffers (hopper.cuh); q·kᵀ
+// and G·Vᵀ run on wgmma with both operands exact bf16; the products with
+// the float32 matrix run on wgmma m64n64k16 with the matrix side split into
+// bf16 hi + lo (two MMAs, about 2^-17 relative) and the bf16 side read
+// MN-major from the swizzled buffer. The forward's persistent block (one a
+// SM) holds the item's N×N float32 matrix in shared memory and takes one
+// (image, head) item at a time; the backward holds it in registers, over a
+// cluster of two blocks above 128 rows, and keeps its shared memory for an
+// operand ring and the transposed products (packed_resident_bwd.cu).
 //
 // The branch rule (resident_fits) is mirrored in Python
 // (ops/cuda/packed_attention.py::_resident_fits and its smem formulas):
@@ -56,26 +58,37 @@ __host__ __device__ inline size_t fwd_smem_bytes(int n) {
          4 * ((size_t)n * resident_ld(n) + 3 * (size_t)n);
 }
 
-// Dynamic shared memory of the backward: two operand buffers (k and q,
-// then dout and v, then k and q again), the matrix, then b_fin, a_fin,
-// da, db_row, svec and kWarps rows of N (rounded up to even): the per-warp
-// column partials of the chain, then dS's rank-1 column factors.
-__host__ __device__ inline size_t bwd_smem_bytes(int n) {
-  return kAlign + 2 * (size_t)kOpBytes +
-         4 * ((size_t)n * resident_ld(n) + (5 + kWarps) * (size_t)n + kWarps + 1);
+// The backward's block: two consumer warpgroups, which hold 128 rows of
+// the matrix (kBlockRows), and a producer warpgroup, whose first warp
+// issues the loads (a warpgroup, so that setmaxnreg can hand its registers
+// to the consumers).
+constexpr int kBwdThreads = kThreads + 128;
+constexpr int kBlockRows = 2 * kTileRows;
+constexpr int kHalfBytes = kBlockRows * hopper::kSwizzleRowBytes;  // q or dout: the block's rows
+constexpr int kSlotBytes = kOpBytes + kHalfBytes;  // a ring slot: k | q or v | dout
+constexpr int kRingSlots = 2;
+// A staging region: one plane (hi or lo) of one warpgroup's rows,
+// transposed: kNCols rows (the matrix's columns) of 64 bf16.
+constexpr int kStageBytes = kNCols * hopper::kSwizzleRowBytes;
+constexpr int kPartBytes = kTileRows * kD * 4;  // a 64 × 64 float32 tile of partial sums
+
+// Dynamic shared memory of the backward, whatever N and the schedule: the
+// ring, four staging regions ([plane][warpgroup]; a tile of the last one
+// reads up to 56 rows past it, into the vectors), then the column vectors
+// (kMaxIters b rows, kMaxIters dc vectors, db_row), the per-warp column
+// partials, the column sums' exchange buffers ([2][2] × kNCols) and the row
+// vectors at the block's rows (kMaxIters a rows, kMaxIters dr vectors).
+__host__ __device__ inline size_t bwd_smem_bytes() {
+  return kAlign + kRingSlots * (size_t)kSlotBytes + 4 * (size_t)kStageBytes +
+         4 * ((size_t)(2 * kMaxIters + 1 + kWarps + 4) * kNCols +
+              (size_t)2 * kMaxIters * kBlockRows);
 }
 
 // The branch rule: the resident kernels take bf16 at D = 64 and N up to
 // the wgmma width, where both kernels' shared memory fits a block.
 __host__ __device__ inline bool resident_fits(int n, int d) {
   return d == kD && n >= 1 && n <= kMaxN && fwd_smem_bytes(n) + kStaticSmem <= kSmemLimit &&
-         bwd_smem_bytes(n) + kStaticSmem <= kSmemLimit;
-}
-
-// Floats of the backward's per-block vector scratch: the iters dc and
-// iters dr vectors of the reverse chain (their rank-1 terms).
-__host__ __device__ inline size_t bwd_terms_floats(int n, int iters) {
-  return 2 * (size_t)iters * n;
+         bwd_smem_bytes() + kStaticSmem <= kSmemLimit;
 }
 
 __device__ __forceinline__ uint8_t* align_smem(uint8_t* raw) {
@@ -128,9 +141,9 @@ __device__ __forceinline__ void wg_tile(float (&acc)[kAcc], const void* a_tile,
   hopper::fence_regs(acc);
 }
 
-// A pass over the matrix takes a warp a row, lanes across the columns,
-// and R rows at once (load_rows), their loads in flight together: R = 8 in
-// the forward, 4 in the backward, whose registers are scarcer.
+// A pass over the forward's matrix takes a warp a row, lanes across the
+// columns, and R rows at once (load_rows), their loads in flight together
+// (R = 8).
 
 // Column of entry c of a lane's run in a pass (kPassCols entries).
 __device__ __forceinline__ int pass_col(int c) {
@@ -331,3 +344,10 @@ __device__ __forceinline__ void resident_product(const float* P, int n, int ld, 
 
 }  // namespace res
 }  // namespace nrv
+
+// Phase timers of tools/torch_packed_phases.py (the backward's consumer
+// warps): nothing in the package's build.
+#ifndef PRES_PHASE
+#define PRES_PHASE(k)
+#define PRES_PHASE_INIT
+#endif

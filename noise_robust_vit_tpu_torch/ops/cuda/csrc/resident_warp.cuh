@@ -78,6 +78,15 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// One arrival on `bar` once all of this thread's earlier cp.async copies
+// have landed (the arrival is not counted in advance: the mbarrier's count
+// includes it).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   hopper::smem_u32(bar))
+               : "memory");
+}
+
 // Wait until at most `Pending` of this thread's groups are in flight.
 template <int Pending>
 __device__ __forceinline__ void cp_async_wait() {

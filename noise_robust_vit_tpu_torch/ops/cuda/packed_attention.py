@@ -24,8 +24,9 @@ The residual stack is ``[B, H, R, N]`` float32, rows as in ``plain.py``.
 Two branches of kernels compute the function, chosen by shape and dtype
 before the call (``packed_branch``): the resident kernels
 (``csrc/packed_resident_{fwd,bwd}.cu``: bf16, D = 64, N up to
-``RESIDENT_MAX_N``; the item's N×N matrix in shared memory, TMA operand
-tiles, every product on wgmma), and the scratch kernels
+``RESIDENT_MAX_N``; the item's N×N matrix on chip, in shared memory in the
+forward and in registers in the backward, TMA operand tiles, every product
+on wgmma), and the scratch kernels
 (``csrc/packed_attention_{fwd,bwd}.cu``: every other shape the gate takes,
 float32 included; the matrices in a device-memory slot). A CUDA tensor goes
 to one of them or raises.
@@ -76,9 +77,10 @@ _BLOCKS_PER_SM = 2
 
 # The resident branch (csrc/packed_resident.cuh, mirrored here: change one,
 # change the other). Operand buffers of 208 rows × 64 bf16 columns (128
-# bytes a row, the 128-byte swizzle), q row tiles of 64 rows, the matrix
-# with row stride _resident_ld, the kernels' vectors; all within what a
-# block may use on sm_90.
+# bytes a row, the 128-byte swizzle), q row tiles of 64 rows; the forward's
+# matrix with row stride _resident_ld and its vectors; the backward's ring
+# of operand slots, staging regions and vectors; all within what a block
+# may use on sm_90.
 _RES_D = 64
 _RES_NCOLS = 200  # the wgmma n of the S and G·Vᵀ tiles: N's cap before the budget
 _RES_OP_BYTES = 208 * 128
@@ -86,6 +88,10 @@ _RES_TILE_BYTES = 64 * 128
 _RES_ALIGN = 1024
 _RES_STATIC = 256
 _RES_WARPS = 8
+_RES_BLOCK_ROWS = 128  # rows of the matrix a backward block holds
+_RES_SLOT_BYTES = _RES_OP_BYTES + _RES_BLOCK_ROWS * 128  # a ring slot: k | q or v | dout
+_RES_RING_SLOTS = 2
+_RES_STAGE_BYTES = _RES_NCOLS * 128  # a staging region: one plane of a warpgroup's rows
 _SMEM_LIMIT = 232448
 
 launches = LaunchCounts()
@@ -108,25 +114,22 @@ def _resident_fwd_smem(n: int) -> int:
             + 4 * (n * _resident_ld(n) + 3 * n))
 
 
-def _resident_bwd_smem(n: int) -> int:
-    """``bwd_smem_bytes`` in csrc: dynamic shared memory of the backward."""
-    return (_RES_ALIGN + 2 * _RES_OP_BYTES
-            + 4 * (n * _resident_ld(n) + (5 + _RES_WARPS) * n + _RES_WARPS + 1))
+def _resident_bwd_smem() -> int:
+    """``bwd_smem_bytes`` in csrc: dynamic shared memory of the backward,
+    whatever N and the schedule (the matrix is in registers)."""
+    return (_RES_ALIGN + _RES_RING_SLOTS * _RES_SLOT_BYTES + 4 * _RES_STAGE_BYTES
+            + 4 * ((2 * MAX_ITERS + 1 + _RES_WARPS + 4) * _RES_NCOLS
+                   + 2 * MAX_ITERS * _RES_BLOCK_ROWS))
 
 
 def _resident_fits(n: int, dim_head: int) -> bool:
     """``resident_fits`` in csrc: the shapes the resident kernels take."""
     return (dim_head == _RES_D and 1 <= n <= _RES_NCOLS
             and _resident_fwd_smem(n) + _RES_STATIC <= _SMEM_LIMIT
-            and _resident_bwd_smem(n) + _RES_STATIC <= _SMEM_LIMIT)
+            and _resident_bwd_smem() + _RES_STATIC <= _SMEM_LIMIT)
 
 
 RESIDENT_MAX_N = max(n for n in range(1, _RES_NCOLS + 1) if _resident_fits(n, _RES_D))
-
-
-def _bwd_terms_floats(n: int, iters: int) -> int:
-    """``bwd_terms_floats`` in csrc: the backward's per-block vector slot."""
-    return 2 * iters * n
 
 
 def packed_branch(n: int, dim_head: int, dtype: torch.dtype) -> str:
@@ -232,7 +235,9 @@ def _branch_of(qkv, heads, dim_head, iters, branch):
 
 
 def _grid(device: torch.device, kb: int) -> int:
-    """Persistent blocks of the resident kernels: one an SM."""
+    """Persistent blocks of the resident kernels: at most one an SM (the
+    backward launches as many clusters of its blocks as the card holds at
+    once, within this)."""
     return max(1, min(kb, torch.cuda.get_device_properties(device).multi_processor_count))
 
 
@@ -297,13 +302,10 @@ def packed_attention_bwd_cuda(qkv, dout, vecs, heads, dim_head, scale,
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         if chosen == "resident":
-            grid = _grid(qkv.device, kb)
-            terms = torch.empty(grid, _bwd_terms_floats(n, iters), dtype=torch.float32,
-                                device=qkv.device)
             err = lib.nrv_packed_resident_bwd(
-                ptr(qkv), ptr(dout), ptr(vecs), ptr(dqkv), ptr(terms), b, n, heads,
-                dim_head, float(scale), int(robust), int(iters), int(final_row), grid,
-                ctypes.c_void_p(stream))
+                ptr(qkv), ptr(dout), ptr(vecs), ptr(dqkv), ptr(None), b, n, heads,
+                dim_head, float(scale), int(robust), int(iters), int(final_row),
+                _grid(qkv.device, kb), ctypes.c_void_p(stream))
         else:
             slots = _n_slots(qkv.device, kb)
             scratch = torch.empty(slots, 2 * n * _padded_ld(n) + 2 * n * dim_head,

@@ -127,7 +127,7 @@ SCHEDULES = [(iters, final) for iters in range(1, pa.MAX_ITERS + 1) for final in
 def test_branch_resident_on_main_paths(n, schedule):
     """bf16 at SimpleViT-B/16's and vit_b_16's N with D 64 takes the resident
     kernels, whatever the schedule (their shared memory does not depend on
-    it: the chain's rank-1 factors sit in a per-block device slot)."""
+    it: the backward keeps room for the longest chain's vectors)."""
     iters, final_row = schedule
     assert pa.packed_attention_supported(n, 64, 12, 256, iters)
     assert pa.packed_branch(n, 64, torch.bfloat16) == "resident"
@@ -150,11 +150,18 @@ def test_resident_range():
 
 def test_resident_smem_within_limit():
     """Wherever the rule says resident, both kernels' shared memory (the
-    formula mirrored from csrc, with the static part kept) fits a block on
-    sm_90, and the matrix's row stride is the conflict-free one."""
+    formulas mirrored from csrc, with the static part kept) fits a block on
+    sm_90, and the forward matrix's row stride is the conflict-free one.
+    The backward holds its matrix in registers: its shared memory is the
+    operand ring, the four staging regions, and the vectors, whatever N
+    (a tile of the last staging region reads up to 56 rows past it, which
+    the vectors after it cover)."""
+    bwd = pa._resident_bwd_smem()
+    assert bwd + pa._RES_STATIC <= 232448
+    assert bwd >= pa._RES_ALIGN + 2 * pa._RES_SLOT_BYTES + 4 * pa._RES_STAGE_BYTES + 56 * 128
+    assert pa._RES_SLOT_BYTES % 1024 == 0 and pa._RES_STAGE_BYTES % 1024 == 0
     for n in range(1, pa.RESIDENT_MAX_N + 1):
         assert pa._resident_fwd_smem(n) + pa._RES_STATIC <= 232448
-        assert pa._resident_bwd_smem(n) + pa._RES_STATIC <= 232448
         ld = pa._resident_ld(n)
         assert ld >= n and ld % 8 == 0 and ld % 32 == 8
 
@@ -317,3 +324,53 @@ def test_autograd_on_card_launches_kernels(cuda, robust):
     assert (pa.launches.fwd, pa.launches.bwd) == (1, 1)
     np.testing.assert_allclose(out.detach().cpu().numpy(), want[0], atol=1e-4, rtol=1e-3)
     np.testing.assert_allclose(x.grad.cpu().numpy(), want[1], atol=1e-4, rtol=1e-3)
+
+
+# The resident backward on its own: the kernel's gradient from the kernel
+# forward's residual rows against the plain backward from the same rows.
+# N > 128 runs a cluster of two blocks an item, N <= 128 one block.
+RESIDENT_BWD_MODES = [(False, 3, True), (True, 3, True), (True, 4, False), (True, 1, True),
+                      (True, 1, False), (True, 8, True)]
+
+
+def _resident_bwd_vs_plain(qkv, tang, h, d, robust, iters, final_row):
+    args = (h, d, d**-0.5, robust, iters, final_row)
+    _, vecs = pa.packed_attention_fwd_cuda(qkv, *args, branch="resident")
+    got = pa.packed_attention_bwd_cuda(qkv, tang, vecs, *args, branch="resident")
+    again = pa.packed_attention_bwd_cuda(qkv, tang, vecs, *args, branch="resident")
+    want = pa.packed_attention_bwd_plain(qkv, tang, vecs, *args)
+    torch.cuda.synchronize()
+    return got, again, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", RESIDENT_BWD_MODES,
+                         ids=lambda m: f"robust{int(m[0])}-{m[1]}-{int(m[2])}")
+@pytest.mark.parametrize("shape", [(2, 196, 4, 64), (2, 197, 3, 64), (3, 100, 2, 64),
+                                   (2, 128, 2, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_resident_bwd_matches_plain_bf16(cuda, mode, shape):
+    """bf16 atol / rtol 2e-2, as every bf16 gradient here; the same bits
+    from two runs."""
+    b, n, h, d = shape
+    qkv, tang = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _inputs(11, b, n, h, d))
+    got, again, want = _resident_bwd_vs_plain(qkv, tang, h, d, *mode)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [196, 100])
+@pytest.mark.parametrize("mode", [(False, 3, True), (True, 3, True)],
+                         ids=lambda m: f"robust{int(m[0])}-{m[1]}-{int(m[2])}")
+def test_resident_bwd_walks_several_items(cuda, mode, n):
+    """At least three items for every block (N > 128: every cluster) of the
+    persistent grid: nothing carries from one item to the next through the
+    operand ring, the staging regions or the vectors."""
+    h, d = 12, 64
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    b = -(-3 * sms // h) + 1
+    qkv, tang = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _inputs(12, b, n, h, d))
+    got, again, want = _resident_bwd_vs_plain(qkv, tang, h, d, *mode)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(got, again)

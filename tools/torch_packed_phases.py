@@ -3,18 +3,25 @@
 
 Copies the package's kernel sources to ``build/packed_phases/csrc`` with
 ``clock64()`` timers at the resident kernels' phase boundaries (each
-boundary a block barrier; thread 0 of every block adds the cycles since the
+boundary a barrier: the block's in the forward, the consumer warpgroups'
+in the backward; thread 0 of every block adds the cycles since the
 previous one to its slot), builds that copy into its own library, and runs
 the kernels at SimpleViT-B/16's ``[256, 196, 2304]`` (3, final) and
-vit_b_16's ``[256, 197, 2304]`` (4, no final) bf16, vanilla and robust. Prints the kernels' times (the barriers cost a little)
-and the cycles an item spends in each phase, averaged over blocks, beside
-the card's name and power limit.
+vit_b_16's ``[256, 197, 2304]`` (4, no final) bf16, vanilla and robust.
+Prints the kernels' times (the barriers cost a little) and the cycles an
+item spends in each phase, averaged over the blocks that ran, beside the
+card's name and power limit.
 
-Forward phases: wait for k (and v, vanilla), q·kᵀ and the softmax (with P·V
-when vanilla), the Sinkhorn chain, wait for v, the output product.
-Backward phases: wait for k and q, A = exp(q·kᵀ − lse), wait for dout and v,
-the t1 and o/a products (vanilla: dV), the reverse chain, dS, wait for k
-and q, dQ and dK.
+Forward phases (timers at anchor lines): wait for k (and v, vanilla), q·kᵀ
+and the softmax (with P·V when vanilla), the Sinkhorn chain, wait for v,
+the output product. Backward phases (behind the kernel's ``PRES_PHASE``
+markers): wait for k and q, A = exp(q·kᵀ − lse), wait for dout and v, t1
+(vanilla: dV) staged, multiplied and its partials sent to the other block
+of the cluster, o/a (vanilla: dA's row sums), da (vanilla: dS), t1's
+partials received (dV, db), the reverse chain, dS, wait for k and q, dK
+staged, multiplied and its partials sent, dQ, dK's partials received
+(after the next item's A), the step to the next item. Vanilla's chain and
+dS phases are empty.
 
     python3 tools/torch_packed_phases.py
 """
@@ -64,24 +71,18 @@ FWD = [
     ("    hopper::fence_proxy_async();\n    __syncthreads();  // every buffer",
      "    PH(4);\n    hopper::fence_proxy_async();\n    __syncthreads();  // every buffer"),
 ]
-BWD = [
-    ("if (tid == 0 && (int)blockIdx.x < items) issue(blockIdx.x, 0);\n",
-     "if (tid == 0 && (int)blockIdx.x < items) issue(blockIdx.x, 0);\n  PH_INIT\n"),
-    ("    wait_xy();\n    attn_phase(", "    wait_xy();\n    PH(0);\n    attn_phase("),
-    ("    refill(bh, 1);\n    wait_xy();\n", "    PH(1);\n    refill(bh, 1);\n    wait_xy();\n    PH(2);\n"),
-    ("      __syncthreads();\n\n      // the reverse chain", "      __syncthreads();\n      PH(3);\n\n"
-     "      // the reverse chain"),
-    ("      for (int i = tid; i < N; i += kThreads) svec[i] += a_fin[i] * da[i];\n      __syncthreads();\n",
-     "      for (int i = tid; i < N; i += kThreads) svec[i] += a_fin[i] * da[i];\n      __syncthreads();\n"
-     "      PH(4);\n"),
-    ("      __syncthreads();  // all of A read before dS takes its place",
-     "      __syncthreads();  // all of A read before dS takes its place\n      PH(3);"),
-    ("    refill(bh, 0);\n    wait_xy();\n", "    PH(5);\n    refill(bh, 0);\n    wait_xy();\n    PH(6);\n"),
-    ("    refill(bh + gridDim.x, 0);\n  }", "    PH(7);\n    refill(bh + gridDim.x, 0);\n  }"),
-]
+# The backward's markers: a barrier of its two consumer warpgroups (named
+# barrier 1; the producer warp never joins), then thread 0's lap
+BWD_TIMERS = '''
+#define PRES_PHASE_INIT unsigned long long ph_last = clock64();
+#define PRES_PHASE(k) do { asm volatile("bar.sync 1, 256;" ::: "memory"); \\
+  if (threadIdx.x == 0) { unsigned long long now = clock64(); \\
+  g_phase[blockIdx.x * 16 + (k)] += now - ph_last; ph_last = now; } } while (0)
+'''
 NAMES = {"fwd": ["wait k", "q·kᵀ + softmax", "chain", "wait v", "output product"],
-         "bwd": ["wait k, q", "A", "wait dout, v", "t1, o/a (dV)", "chain", "dS", "wait k, q",
-                 "dQ, dK"]}
+         "bwd": ["wait k, q", "A", "wait dout, v", "t1 (dV) sent", "o/a (dA's row sums)",
+                 "da (dS)", "t1 received", "chain", "dS", "wait k, q", "dK sent",
+                 "dQ", "dK received", "next item"]}
 
 
 def instrumented(dst: Path) -> Path:
@@ -99,7 +100,9 @@ def instrumented(dst: Path) -> Path:
     edit("packed_resident.cuh", [("namespace nrv {\nnamespace res {",
                                   "namespace nrv {\nnamespace res {\n" + TIMERS % MAX_BLOCKS)])
     edit("packed_resident_fwd.cu", FWD, READER % ("nrv_phases_fwd", MAX_BLOCKS))
-    edit("packed_resident_bwd.cu", BWD, READER % ("nrv_phases_bwd", MAX_BLOCKS))
+    edit("packed_resident_bwd.cu", [('#include "cluster.cuh"',
+                                      BWD_TIMERS + '#include "cluster.cuh"')],
+         READER % ("nrv_phases_bwd", MAX_BLOCKS))
     return dst
 
 
@@ -120,23 +123,26 @@ def main() -> int:
     build.load_library = lambda: lib  # the wrappers launch the instrumented kernels
     buf = np.zeros(MAX_BLOCKS * SLOTS, dtype=np.uint64)
 
-    def phases(direction, grid):
+    def phases(direction):
+        """The cycles of the blocks that ran (the backward launches as many
+        clusters as the card holds, which may be fewer blocks than SMs)."""
         getattr(lib, f"nrv_phases_{direction}")(buf.ctypes.data)
-        return buf.reshape(MAX_BLOCKS, SLOTS)[:grid].astype(np.float64)
+        laps = buf.reshape(MAX_BLOCKS, SLOTS).astype(np.float64)
+        return laps[laps.sum(1) > 0]
 
     h, d, reps = 12, 64, 5
     for n, iters, final_row in ((196, 3, True), (197, 4, False)):
         gen = torch.Generator(device=dev).manual_seed(n)
         qkv = torch.randn(256, n, 3 * h * d, device=dev, generator=gen).to(torch.bfloat16)
         g = torch.randn(256, n, h * d, device=dev, generator=gen).to(torch.bfloat16)
-        grid = min(256 * h, sms)
-        items_per_block = 256 * h / grid
+        items = 256 * h
+        cluster = 2 if n > pa._RES_BLOCK_ROWS else 1  # the backward's blocks an item
         for robust in (False, True):
             args = (h, d, d ** -0.5, robust, iters, final_row)
             _, vecs = pa.packed_attention_fwd_cuda(qkv, *args, branch="resident")
             pa.packed_attention_bwd_cuda(qkv, g, vecs, *args, branch="resident")
             torch.cuda.synchronize()
-            phases("fwd", grid), phases("bwd", grid)  # drop the warm-up's cycles
+            phases("fwd"), phases("bwd")  # drop the warm-up's cycles
             line = f"[256,{n},{3 * h * d}] robust={int(robust)} ({iters}, {int(final_row)})"
             for direction, fn in (
                     ("fwd", lambda: pa.packed_attention_fwd_cuda(qkv, *args, branch="resident")),
@@ -149,7 +155,9 @@ def main() -> int:
                     fn()
                 end.record()
                 torch.cuda.synchronize()
-                cycles = phases(direction, grid).mean(0) / (items_per_block * reps)
+                laps = phases(direction)
+                per_block = items * (cluster if direction == "bwd" else 1) / len(laps)
+                cycles = laps.mean(0) / (per_block * reps)
                 parts = ", ".join(f"{name} {cycles[i]:.0f}"
                                   for i, name in enumerate(NAMES[direction]))
                 line += (f"\n  {direction} {start.elapsed_time(end) / reps:.4f} ms; cycles an "
