@@ -3,9 +3,11 @@ times (roofline bounds), percentiles and spreads, and the union of device
 intervals. Nothing here touches a device or imports the program.
 
 The bound arithmetic is a copy of ``chip_smoke.py``'s ``chain_passes``,
-``bound_ms`` and ``attention_work``, and the residual-row count a copy of
-the port's ``num_vecs``; they are kept here so that the yardstick does not
-move when the program does.
+``bound_ms`` and ``attention_work``, with its streaming and rect Sinkhorn
+calls' bytes and passes (``phase_stream_times``, ``phase_sinkhorn_times``),
+and the residual-row counts a copy of the port's ``num_vecs``, ``_n_avecs``
+and ``_rect_rows``; they are kept here so that the yardstick does not move
+when the program does.
 """
 
 from __future__ import annotations
@@ -72,23 +74,45 @@ def call_bounds(call: dict, robust: bool, iters: int, final_row: bool, act_bytes
     tokens, 3·heads·dim]`` tensor, ``[batch, tokens, heads·dim]`` out.
     ``kind`` "windowed": q, k, v ``[windows_total, heads, tokens, dim]``
     apart, a float32 ``[windows, heads, tokens, tokens]`` bias added to the
-    logits, and its gradient written back."""
-    kind, h, n, d = call["kind"], call["heads"], call["tokens"], call["dim"]
+    logits, and its gradient written back. ``kind`` "streaming": q ``[batch,
+    heads, tokens, dim]``, k and v ``[batch, heads, keys, dim]``, out like
+    q, and the float32 residuals ``[batch·heads, 1 + rows, tokens]`` and
+    ``[batch·heads, iters, keys]`` (the streaming kernels'). ``kind``
+    "rect": the Sinkhorn softmax alone, float32 logits ``[batch, heads,
+    tokens, keys]`` in and weights out (their gradients back), with the
+    same residuals, and no products."""
+    kind, h, n = call["kind"], call["heads"], call["tokens"]
     if kind == "packed":
-        b = call["batch"]
+        b, d = call["batch"], call["dim"]
         qkv = b * n * 3 * h * d * act_bytes
         out = b * n * h * d * act_bytes
         vecs = b * h * residual_rows(robust, iters, final_row) * n * 4
         return attention_work(b * h, n, d, d, (qkv, qkv + out + vecs), (out + vecs, qkv),
                               robust, iters, final_row, 0)
     if kind == "windowed":
-        bw = call["windows_total"]
+        bw, d = call["windows_total"], call["dim"]
         qk = 2 * bw * h * n * d * act_bytes
         v = bw * h * n * d * act_bytes
         vecs = bw * h * residual_rows(robust, iters, final_row) * n * 4
         bias = call["windows"] * h * n * n * 4
         return attention_work(bw * h, n, d, d, (qk + v + bias, qk + 2 * v + vecs + bias),
                               (v + vecs, qk + v + bias), robust, iters, final_row, 1)
+    if kind in ("streaming", "rect"):
+        items, m = call["batch"] * h, call["keys"]
+        # rows over the queries: the log-sum-exp and each row pass's
+        # scaling; over the keys: each column pass's
+        rows, cols = (max(iters - 1, 0) + int(final_row), iters) if robust else (0, 0)
+        vecs = items * ((1 + rows) * n + cols * m) * 4
+        if kind == "rect":
+            mat, nm = items * n * m * 4, items * n * m
+            fp, bp, nt = chain_passes(robust, iters, final_row)
+            return (bound_ms(2 * mat + vecs, 0, nm * (4 + 2 * fp)),
+                    bound_ms(3 * mat + vecs, 0, nm * (3 + 2 * bp + 4 + 2 * nt)))
+        d = call["dim"]
+        qkv = items * (n + 2 * m) * d * act_bytes
+        out = items * n * d * act_bytes
+        return attention_work(items, n, d, d, (qkv, qkv + out + vecs), (out + vecs, qkv),
+                              robust, iters, final_row, 0, m=m)
     raise ValueError(f"unknown attention call kind {kind!r}")
 
 

@@ -1,15 +1,16 @@
 """One run of one cell: find the cell's files by name, set up the train state
-from the seed, take the checked first steps, measure the window (or the
-traced stretch and profile), then free the program and hold its first
-steps against the plain reference.
+from the seed, take the checked first steps, measure the window and the
+device's time a step (or the traced stretch, with the port's step spans,
+and the profile), then free the program and hold its first steps against
+the plain reference.
 
 Everything that belongs to one configuration, traffic mix, per-layer metric
 or cell sits in a file of its own, found by name:
 
 - ``configs/<config>.json``: the model's sizes, batch, optimizer, the
   attention calls a step makes, and the name of its reference module;
-- ``reference/<reference>.py``: the plain float32 model and its analytic
-  FLOPs;
+- ``reference/<reference>.py``: the plain float32 model, its analytic
+  FLOPs, and ``COUPLES_IMAGES`` where its layers couple a batch's images;
 - ``mixes/<traffic>.json``: the attention mode;
 - ``metrics/<metric>.py``: a reader of one per-layer metric;
 - ``limits/<workload>.json``: the limits of the correctness comparison.
@@ -30,7 +31,7 @@ from pathlib import Path
 
 import torch
 
-from benchmark import arith
+from benchmark import arith, spans
 from benchmark import trace as tracing
 from benchmark.reference import common
 
@@ -43,7 +44,11 @@ ROOT = HERE.parent
 POOL_BATCHES = 4
 CHECKED_STEPS = 3
 WARMUP_STEPS = 2
-# images a block of the reference's forward and backward
+# steps of an untraced run's device-only profile after its window, whose
+# busy time a step is device_step_ms
+DEVICE_STEPS = 8
+# images a block of the reference's forward and backward, where its model
+# treats each image apart
 REFERENCE_BLOCK = 32
 
 
@@ -82,13 +87,27 @@ def reference_module(cfg: dict):
     return importlib.import_module(f"benchmark.reference.{cfg['reference']}")
 
 
+def reference_block(cfg: dict, ref) -> int:
+    """Images a block of the reference's steps: the whole batch where the
+    reference module states ``COUPLES_IMAGES = True`` (a layer, such as
+    BatchNorm in training, computes over the images of the batch, so a
+    smaller block is another function), else ``REFERENCE_BLOCK``."""
+    return cfg["batch"] if getattr(ref, "COUPLES_IMAGES", False) else REFERENCE_BLOCK
+
+
 def metric_reader(name: str):
     return importlib.import_module(f"benchmark.metrics.{name}")
 
 
 def cell_metrics(bench: dict, workload: str, kind: str) -> list[dict]:
-    """The ``end_to_end`` or ``per_layer`` metrics that ``workload`` reports."""
-    return [m for m in bench[kind] if workload in m.get("workloads", [workload])]
+    """The ``end_to_end`` or ``per_layer`` metrics that ``workload`` reports:
+    those whose list names it; of those with no list, every end-to-end
+    metric, and every per-layer metric whose ``moves`` the cell reports."""
+    if kind == "end_to_end":
+        return [m for m in bench[kind] if workload in m.get("workloads", [workload])]
+    ends = {m["name"] for m in cell_metrics(bench, workload, "end_to_end")}
+    return [m for m in bench[kind]
+            if (workload in m["workloads"] if "workloads" in m else m["moves"] in ends)]
 
 
 def attention_of(cfg: dict, mix: dict) -> dict | None:
@@ -239,7 +258,7 @@ def reference_steps(cfg: dict, mix: dict, seed: int, device, steps: int,
         return ref.forward(p, images, cfg, robust, rnd=rnd, masks=step_masks)
 
     return common.train_steps(forward, weights, batches, cfg["optimizer"],
-                              REFERENCE_BLOCK, masks)
+                              reference_block(cfg, ref), masks)
 
 
 def _param_shapes(cfg: dict) -> dict:
@@ -365,13 +384,15 @@ def measure(state, pool, seconds: float, device) -> dict:
 
 @dataclass
 class Context:
-    """What a per-layer metric's reader reads."""
+    """What a per-layer metric's reader reads: the stretch, its step spans
+(the port's ``StepTracer`` records) and the profile after it."""
 
     cfg: dict
     mix: dict
     workload: str
     stretch: dict
     trace: object = None
+    spans: list | None = None
 
 
 # --------------------------------------------------------------------- run
@@ -414,14 +435,25 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
     setup_s = time.perf_counter() - t_start
 
     per_layer = None
-    win = measure(state, pool, seconds, device)
     if trace:
+        from noise_robust_vit_tpu_torch.train import StepTracer
+
+        # the step spans over the stretch; the tracer's events are made here
+        state.tracer = StepTracer(device)
+        state.tracer.start()
+    win = measure(state, pool, seconds, device)
+    device_ms = None if trace else tracing.device_step_ms(state, pool, DEVICE_STEPS, device)
+    if trace:
+        drained = state.tracer.drain()
+        state.tracer = None
+        card = spans.card_state(device)
+        log(spans.log_line(drained))
         prof = tracing.profile_steps(state, pool, cfg["profile_steps"], device)
         images = prof.steps * cfg["batch"]
         log(f"trace: img/s unprofiled stretch {win['images'] / win['wall_s']:.4f}, "
             f"profiled with host ops {images / prof.profiled_s:.4f}, device activity "
             f"alone (first to last device op) {images / prof.window_s:.4f}")
-        ctx = Context(cfg, mix, workload, win, prof)
+        ctx = Context(cfg, mix, workload, win, prof, drained["records"])
         per_layer = {}
         for m in cell_metrics(bench, workload, "per_layer"):
             value = metric_reader(m["name"]).read(ctx)
@@ -450,14 +482,20 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
         metrics = {}
         p95 = arith.percentile(win["step_ms"], 95)
         values = {"train_img_s": win["images"] / win["wall_s"], "step_ms_p95": p95,
-                  "peak_mem_gib": peak / 2 ** 30, "setup_s": setup_s}
+                  "device_step_ms": device_ms, "peak_mem_gib": peak / 2 ** 30,
+                  "setup_s": setup_s}
         for m in cell_metrics(bench, workload, "end_to_end"):
-            metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
+            # off the card there is no device time: device_step_ms is left out
+            if values[m["name"]] is not None:
+                metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}
         log_window(win, p95)
+        log(f"window: img/s {win['images'] / win['wall_s']:.4f}; device ms a step "
+            f"(busy, {DEVICE_STEPS} profiled steps after the window) {device_ms}")
     result = {"correct": ok and failed == 0, "attempted": win["steps"], "failed": failed,
               "metrics": metrics, "device": device_info(device, peak)}
     if trace:
-        result["device"].update(busy_s=prof.busy_s, window_s=prof.window_s)
+        result["device"].update(busy_s=prof.busy_s, window_s=prof.window_s,
+                                card_state=card)
         result["breakdown"] = prof.breakdown()
     result["checks"] = checks
     return result

@@ -1,15 +1,13 @@
-"""The share of a step in which the device is idle, in %: one minus the
-device's busy time a profiled step (the union of its device ops' intervals,
-from the profile of device activity alone) over the step period of the
-traced run's unprofiled stretch (the sum of the intervals between its step
-events over its steps). The two come from different steps of one run: the
-profiler's own host cost stretches a step that the host binds, so the
-profiled steps' own period (``device.busy_s`` against ``device.window_s``)
-reads a higher idle share than a step of the window has."""
+"""The share of the profiled steps in which the device is idle, in %: one
+minus the device's busy time (the union of its device ops' intervals) over
+the span from the first device op to the last, both from the profile of
+device activity alone, so both from the same steps. Recording device
+activity costs the host some time a launch, which stretches a step that the
+host binds: in such a cell this reads above the idle share of an unprofiled
+step. None where the profile holds no device op."""
 
 
 def read(ctx):
-    if ctx.trace.busy_s <= 0 or not ctx.stretch["steps"]:
+    if ctx.trace.busy_s <= 0 or ctx.trace.window_s <= 0:
         return None
-    step_ms = sum(ctx.stretch["step_ms"]) / ctx.stretch["steps"]
-    return 100.0 * (1.0 - 1e3 * ctx.trace.busy_s / ctx.trace.steps / step_ms)
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)

@@ -117,6 +117,12 @@ def train_steps(forward, params0: dict, batches, opt: dict, block: int,
     """``len(batches)`` train steps of ``forward(params, images, masks)``
     from ``params0``, each over its batch in blocks of ``block`` images
     (gradients summed over the blocks, the loss a mean over the batch).
+    Blocks are exact only for a model that treats each image apart; for one
+    whose layers couple the images of a batch (BatchNorm in training), the
+    caller passes the batch, which is then one block. Such a reference has
+    to keep its own memory within the card: where its whole batch does not
+    fit, it must chunk its per-image parts itself (attention is per image,
+    so chunking it is exact).
     ``masks[s]`` is the list of per-image stochastic-depth multipliers of
     step ``s``, in call order, or None. Returns the loss of every step,
     every leaf's first gradient and its change over all the steps (on the

@@ -7,7 +7,8 @@ the port (``noise_robust_vit_tpu_torch``). With ``--trace 0`` the last line
 of standard output carries the cell's end-to-end metrics, with ``--trace 1``
 its per-layer metrics; the numbers compared for ``correct`` are the last
 lines of standard error and the last key of the result line. Exits non-zero,
-printing no result, without a CUDA device or without the port.
+printing no result, without a CUDA device, without the port, or where the
+run has loaded JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +23,15 @@ import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+# top-level module names that no run may load: JAX, its libraries and the JAX
+# package the port was made from (``noise_robust_vit_tpu_torch`` is another
+# name, compared whole)
+FORBIDDEN = frozenset({"jax", "jaxlib", "flax", "noise_robust_vit_tpu"})
+
+
+def forbidden_loaded(modules) -> list[str]:
+    """The top-level names in ``modules`` that are in ``FORBIDDEN``."""
+    return sorted({name.split(".")[0] for name in modules} & FORBIDDEN)
 
 
 def parse(argv=None):
@@ -62,6 +72,11 @@ def main(argv=None) -> int:
     torch.set_num_threads(1)
     result = harness.run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
                               "cuda", T_START, bench)
+    loaded = forbidden_loaded(list(sys.modules))
+    if loaded:
+        print(f"run: the run loaded {loaded}; the port must run without JAX",
+              file=sys.stderr)
+        return 3
     for name, c in result["checks"].items():
         print(f"check: {name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     print(json.dumps(result))

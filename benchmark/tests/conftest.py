@@ -55,7 +55,8 @@ def small_configs() -> dict:
 def small(monkeypatch):
     """Point the harness's configuration lookup at the tiny configurations
     (by the real configurations' names), the reference in blocks of 8
-    images, so that it sums its gradients over several."""
+    images, so that it sums its gradients over several (a model that
+    couples the images of a batch keeps its batch whole)."""
     cfgs = small_configs()
     monkeypatch.setattr(harness, "load_config", lambda name: cfgs[name])
     monkeypatch.setattr(harness, "REFERENCE_BLOCK", 8)

@@ -40,6 +40,30 @@ def test_windowed_bound_matches_the_kernel_table(robust, fwd, bwd):
     assert (round(f, 4), round(b, 4)) == (fwd, bwd)
 
 
+# PERF.md's kernel table, rows 7 and 5, robust (3, final): CvT-13 @224 b128
+# stage 1 and 2 on the streaming kernels, stage 3 on the rect ones
+CVT_13_CALLS = [
+    ({"kind": "streaming", "batch": 128, "heads": 1, "tokens": 3136, "keys": 784, "dim": 64},
+     0.1566, 0.3900),
+    ({"kind": "streaming", "batch": 128, "heads": 3, "tokens": 784, "keys": 196, "dim": 64},
+     0.0305, 0.0731),
+    ({"kind": "rect", "batch": 128, "heads": 6, "tokens": 196, "keys": 49}, 0.0185, 0.0273),
+]
+
+
+@pytest.mark.parametrize("call,fwd,bwd", CVT_13_CALLS,
+                         ids=["streaming stage 1", "streaming stage 2", "rect stage 3"])
+def test_cvt_13_bounds_match_the_kernel_table(call, fwd, bwd):
+    (f, _), (b, _) = arith.call_bounds(dict(call, count=1), True, 3, True)
+    assert f == pytest.approx(fwd, rel=5e-3) and b == pytest.approx(bwd, rel=5e-3)
+
+
+def test_an_unknown_call_kind_is_refused():
+    call = dict(CVT_13_CALLS[0][0], kind="sparse")
+    with pytest.raises(ValueError, match="sparse"):
+        arith.call_bounds(call, True, 3, True)
+
+
 def test_step_bounds():
     v = harness.load_config("simple_vit_b16")["attention"]["sinkhorn"]["calls"]
     s = harness.load_config("swin_t")["attention"]["sinkhorn"]["calls"]
@@ -156,12 +180,65 @@ def test_idle_share_comes_from_the_device_only_profile_when_there_is_one():
 
 
 def test_idle_share_is_over_the_stretch_step_events():
+    # busy time and span from the same profiled steps: the stretch's step
+    # events no longer enter, so a stretch faster than the profiled steps
+    # cannot turn the share negative
     from benchmark.harness import Context
     from benchmark.metrics import device_idle_pct
+    from benchmark.trace import DEVICE_CATS
 
     t = Trace(synthetic_trace(), 2)
-    # 22 µs busy a profiled step; the stretch's step events 44 µs apart, while
-    # its host clock (wall_s) would give 66 µs a step
     stretch = {"steps": 3, "step_ms": [0.040, 0.048, 0.044], "wall_s": 3 * 66e-6}
-    assert device_idle_pct.read(Context({}, {}, "w", stretch, t)) == pytest.approx(50.0)
-    assert device_idle_pct.read(Context({}, {}, "w", dict(stretch, steps=0), t)) is None
+    idle = 100.0 * (1.0 - 44.0 / 160.0)
+    assert device_idle_pct.read(Context({}, {}, "w", stretch, t)) == pytest.approx(idle)
+    fast = dict(stretch, step_ms=[0.001] * 3)
+    assert device_idle_pct.read(Context({}, {}, "w", fast, t)) == pytest.approx(idle)
+    # with a device-only profile, its own busy time over its own span
+    timeline, t0 = [], 1000.0
+    for e in sorted((e for e in synthetic_trace() if e["cat"] == "kernel"),
+                    key=lambda e: e["ts"]):
+        timeline.append(dict(e, ts=t0))
+        t0 += e["dur"] + 1
+    t = Trace(synthetic_trace(), 2, timeline)
+    assert device_idle_pct.read(Context({}, {}, "w", stretch, t)) == \
+        pytest.approx(100.0 * (1.0 - 44.0 / 51.0))
+    bare = Trace([e for e in synthetic_trace() if e.get("cat") not in DEVICE_CATS], 2)
+    assert device_idle_pct.read(Context({}, {}, "w", stretch, bare)) is None
+
+
+def test_device_step_ms_is_the_device_only_busy_time_a_step(monkeypatch):
+    # an untraced run's device_step_ms is the union of the device-only
+    # profile's device ops over the profiled steps: overlaps counted once,
+    # gaps and host events left out; None off the card
+    import torch
+
+    from benchmark import trace
+
+    timeline = [_ev("kernel", "a", 0, 10), _ev("kernel", "b", 5, 10),
+                _ev("gpu_memcpy", "c", 30, 4), _ev("cpu_op", "aten::mm", 0, 100),
+                _ev("kernel", "d", 60, 6)]
+    monkeypatch.setattr(trace, "_device_timeline", lambda *a: timeline)
+    cuda = torch.device("cuda")
+    assert trace.device_step_ms(None, None, 2, cuda) == pytest.approx(25e-3 / 2)
+    monkeypatch.setattr(trace, "_device_timeline", lambda *a: [])
+    assert trace.device_step_ms(None, None, 2, cuda) is None
+    assert trace.device_step_ms(None, None, 2, torch.device("cpu")) is None
+
+
+def test_device_mfu_is_the_step_flops_over_the_device_busy_time():
+    from benchmark.harness import Context, load_config
+    from benchmark.metrics import device_mfu, wall_img_s
+    from benchmark.trace import DEVICE_CATS
+
+    cfg = load_config("simple_vit_b16")
+    t = Trace(synthetic_trace(), 2)
+    stretch = {"steps": 3, "images": 3 * cfg["batch"], "wall_s": 0.3, "step_ms": [100.0] * 3}
+    flops = simple_vit.train_flops_per_image(cfg) * cfg["batch"]
+    want = 100.0 * flops / (t.busy_s / 2) / arith.PEAK_BF16
+    assert device_mfu.read(Context(cfg, {}, "w", stretch, t)) == pytest.approx(want)
+    bare = Trace([e for e in synthetic_trace() if e.get("cat") not in DEVICE_CATS], 2)
+    assert device_mfu.read(Context(cfg, {}, "w", stretch, bare)) is None
+    # the wall rate is the stretch's, whatever the profile holds
+    assert wall_img_s.read(Context(cfg, {}, "w", stretch, bare)) == \
+        pytest.approx(10 * cfg["batch"])
+    assert wall_img_s.read(Context(cfg, {}, "w", dict(stretch, steps=0), t)) is None

@@ -49,7 +49,37 @@ def test_every_per_layer_metric_has_a_reader(metric):
     assert callable(harness.metric_reader(metric["name"]).read)
     assert set(metric) <= {"name", "unit", "better", "source", "layer", "moves", "workloads"}
     assert metric["moves"] in {m["name"] for m in BENCH["end_to_end"]}
-    assert set(metric["workloads"]) <= {c["name"] for c in BENCH["workloads"]}
+    assert set(metric.get("workloads", [])) <= {c["name"] for c in BENCH["workloads"]}
+
+
+@pytest.mark.parametrize("metric", BENCH["end_to_end"] + BENCH["per_layer"],
+                         ids=lambda m: m["name"])
+def test_a_cell_list_names_some_cells_not_all(metric):
+    # a metric that every cell reports has no list, so that a cell added
+    # later reports it too
+    if "workloads" in metric:
+        cells = {c["name"] for c in BENCH["workloads"]}
+        assert metric["workloads"] and set(metric["workloads"]) < cells
+        assert len(set(metric["workloads"])) == len(metric["workloads"])
+
+
+@pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda c: c["name"])
+def test_a_cell_reports_what_its_per_layer_metrics_move(cell):
+    # every cell reports setup_s and another end-to-end metric; each of its
+    # per-layer metrics moves one that it reports; a per-layer metric with no
+    # list is every cell's that reports what it moves, and no other's
+    ends = {m["name"] for m in harness.cell_metrics(BENCH, cell["name"], "end_to_end")}
+    assert "setup_s" in ends and len(ends) >= 2
+    layers = harness.cell_metrics(BENCH, cell["name"], "per_layer")
+    assert layers and all(m["moves"] in ends for m in layers)
+    for m in BENCH["per_layer"]:
+        if "workloads" not in m:
+            assert (m in layers) == (m["moves"] in ends)
+    # beside a kernel's roofline, the whole step's share of the peak moving
+    # the same end-to-end metric
+    for m in layers:
+        if m["name"].endswith("_roofline_pct") or m["name"].endswith("_roofline"):
+            assert any("mfu" in k["name"] and k["moves"] == m["moves"] for k in layers)
 
 
 def test_metric_and_config_fields():
@@ -88,3 +118,37 @@ def test_run_refuses_without_the_port(tmp_path):
                            BENCH["workloads"][0]["name"], "--seed", "1", "--seconds", "1"],
                           cwd=tmp_path, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and proc.stdout == ""
+
+
+@pytest.mark.parametrize("planted,refused", [
+    ("jax", True), ("jaxlib.xla_client", True), ("flax.linen", True),
+    ("noise_robust_vit_tpu.models", True), ("noise_robust_vit_tpu_torch", False),
+    ("jaxtyping", False)])
+def test_run_refuses_a_result_once_jax_is_loaded(monkeypatch, capsys, planted, refused):
+    import types
+
+    import torch
+
+    from benchmark import run
+
+    def fake_run_cell(*args, **kwargs):
+        return {"correct": True, "attempted": 1, "failed": 0, "metrics": {}, "device": {},
+                "checks": {"loss_gap": {"value": 0.0, "limit": 1.0}}}
+
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch, "set_num_threads", lambda n: None)
+    monkeypatch.setattr(harness, "run_cell", fake_run_cell)
+    for name in list(sys.modules):
+        if name.split(".")[0] in run.FORBIDDEN:
+            monkeypatch.delitem(sys.modules, name)
+    monkeypatch.setitem(sys.modules, planted, types.ModuleType(planted))
+    rc = run.main(["--workload", BENCH["workloads"][0]["name"], "--seed", str(2**31 + 9),
+                   "--seconds", "1", "--trace", "0"])
+    out, err = capsys.readouterr()
+    if refused:
+        assert rc != 0 and out == ""
+        assert planted.split(".")[0] in err
+    else:
+        assert rc == 0 and json.loads(out.splitlines()[-1])["correct"]

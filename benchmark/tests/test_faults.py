@@ -16,6 +16,7 @@ import torch
 from benchmark import harness
 from benchmark.calibrate import half_batch
 from benchmark.reference import common
+from benchmark.spans import SKIP_STEPS
 
 BENCH = harness.load_benchmark()
 CELLS = [c["name"] for c in BENCH["workloads"]]
@@ -37,8 +38,9 @@ def test_sound_run_is_correct(small, workload):
     r = run(workload, SEEDS[0])
     assert r["correct"], r["checks"]
     assert r["attempted"] > 0 and r["failed"] == 0
-    assert set(r["metrics"]) == {m["name"] for m in harness.cell_metrics(BENCH, workload,
-                                                                         "end_to_end")}
+    # off the card there is no device op, so no device time a step
+    assert set(r["metrics"]) == {m["name"] for m in harness.cell_metrics(
+        BENCH, workload, "end_to_end")} - {"device_step_ms"}
     assert list(r)[-1] == "checks"
 
 
@@ -65,6 +67,22 @@ def test_control_fails_a_limit(small, workload):
 def test_traced_run_reads_the_per_layer_metrics_it_can(small):
     r = run("swin_t.robust", SEEDS[2], trace=True)
     assert r["correct"], r["checks"]
-    # on the CPU there is no device op: only the readers of the stretch find something
-    assert set(r["metrics"]) == {"host_enqueue_ms", "mfu", "stretch_step_ms_p95"}
+    # on the CPU there is no device op: only the readers of the stretch and
+    # of its step spans find something; of those, a Swin-T cell reports the
+    # ones that move its device step, and its wall rate
+    assert set(r["metrics"]) == {"wall_img_s", "stretch_step_ms_p95", "forward_ms",
+                                 "backward_ms"}
     assert {"busy_s", "window_s"} <= set(r["device"]) and "breakdown" in r
+
+
+def test_traced_run_of_a_rate_cell_reads_its_host_side_metrics(small):
+    r = run("simple_vit_b16.vanilla", SEEDS[2], trace=True)
+    assert r["correct"], r["checks"]
+    # a cell that reports train_img_s reads the host side of its step too;
+    # the lead's past the first steps
+    names = {"host_enqueue_ms", "mfu", "forward_ms", "backward_ms"}
+    if r["attempted"] > SKIP_STEPS:
+        names.add("host_lead_ms_p5")
+        # on the CPU the spans' device clock is the host's: no lead
+        assert r["metrics"]["host_lead_ms_p5"]["value"] == 0.0
+    assert set(r["metrics"]) == names

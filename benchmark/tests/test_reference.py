@@ -8,8 +8,10 @@ from __future__ import annotations
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from benchmark import harness
+from benchmark.reference import common
 from benchmark.reference import swin as ref_swin
 
 CPU = torch.device("cpu")
@@ -72,6 +74,59 @@ def test_reference_parameters_are_the_programs():
     for name in ("simple_vit_b16", "swin_t"):
         cfg = harness.load_config(name)
         assert set(harness._param_shapes(cfg)) == harness.reference_module(cfg).param_names(cfg)
+
+
+class CoupledToy:
+    """A reference whose model couples the images of a batch: linear →
+    BatchNorm over the batch (training statistics) → linear."""
+
+    COUPLES_IMAGES = True
+
+    @staticmethod
+    def forward(p, images, masks):
+        h = common.linear(images.reshape(images.shape[0], -1), p["a.weight"], p["a.bias"])
+        h = F.batch_norm(h, None, None, p["n.weight"], p["n.bias"], training=True)
+        return common.linear(h, p["b.weight"], p["b.bias"])
+
+
+def toy_steps(block):
+    shapes = {"a.weight": (16, 12), "a.bias": (16,), "n.weight": (16,), "n.bias": (16,),
+              "b.weight": (5, 16), "b.bias": (5,)}
+    params = harness.draw_weights(shapes, SEED, CPU)
+    gen = torch.Generator().manual_seed(SEED)
+    images = torch.randn(8, 2, 2, 3, generator=gen)
+    labels = torch.randint(0, 5, (8,), generator=gen)
+    opt = {"lr": 1e-3, "weight_decay": 0.05}
+    got = common.train_steps(CoupledToy.forward, params, [(images, labels)], opt, block)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    loss = F.cross_entropy(CoupledToy.forward(leaves, images, None), labels,
+                           reduction="sum") / 8
+    whole = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    return got["grads"], whole
+
+
+def test_a_coupled_reference_steps_over_the_whole_batch():
+    block = harness.reference_block({"batch": 8}, CoupledToy)
+    assert block == 8
+    grads, whole = toy_steps(block)
+    assert all(torch.equal(grads[k], whole[k]) for k in whole)
+    # the rule matters: blocks of 2 normalise over 2 images
+    grads, whole = toy_steps(2)
+    assert max(float((grads[k] - whole[k]).norm() / whole[k].norm())
+               for k in ("a.weight", "n.weight", "n.bias")) > 1e-3
+
+
+def test_reference_block_splits_only_an_uncoupled_batch():
+    for name in ("simple_vit_b16", "swin_t"):
+        cfg = harness.load_config(name)
+        assert harness.reference_block(cfg, harness.reference_module(cfg)) == 32
+        assert harness.reference_block(cfg, CoupledToy) == cfg["batch"]
+
+
+def test_reference_block_under_the_tests_smaller_block(small):
+    for cfg in small.values():
+        assert harness.reference_block(cfg, harness.reference_module(cfg)) == 8
+        assert harness.reference_block(cfg, CoupledToy) == cfg["batch"] > 8
 
 
 def test_weights_depend_on_the_seed_alone():

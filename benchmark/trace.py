@@ -11,7 +11,9 @@ the launch is found by the correlation id that CUPTI gives both.
 Recording host ops costs the host some microseconds an op, which stretches
 a step that the host binds. So the device's busy and idle time come from a
 second profile of as many steps that records device activity alone, from
-its first device op to its last, the queue drained before and after.
+its first device op to its last, the queue drained before and after. An
+untraced run takes that second profile alone after its window, for the
+device's time a step (``device_step_ms``).
 """
 
 from __future__ import annotations
@@ -169,6 +171,12 @@ def _profiled(state, pool, steps: int, device, activities, span: bool) -> list:
         os.unlink(path)
 
 
+def _device_timeline(state, pool, steps: int, device) -> list:
+    from torch.profiler import ProfilerActivity
+
+    return _profiled(state, pool, steps, device, [ProfilerActivity.CUDA], False)
+
+
 def profile_steps(state, pool, steps: int, device) -> Trace:
     """``steps`` steps with host ops and device activity, then, on the card,
     as many with device activity alone."""
@@ -177,6 +185,17 @@ def profile_steps(state, pool, steps: int, device) -> Trace:
     cuda = device.type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     events = _profiled(state, pool, steps, device, acts, True)
-    timeline = (_profiled(state, pool, steps, device, [ProfilerActivity.CUDA], False)
-                if cuda else None)
+    timeline = _device_timeline(state, pool, steps, device) if cuda else None
     return Trace(events, steps, timeline)
+
+
+def device_step_ms(state, pool, steps: int, device) -> float | None:
+    """The device's busy time a train step, in ms: the union of the device
+    ops' intervals over ``steps`` steps profiled with device activity alone,
+    over ``steps``. The same reading as a traced run's ``busy_s`` a step.
+    None off the card, where there is no device op."""
+    if device.type != "cuda":
+        return None
+    dev = [(e["ts"], e["ts"] + e["dur"]) for e in _device_timeline(state, pool, steps, device)
+           if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    return arith.union_length(dev) / 1e3 / steps if dev else None
