@@ -53,7 +53,12 @@ class _DWConvProj(nn.Module):
 
 
 class _CvtAttention(nn.Module):
-    """(ref cvt.py:70-102.)"""
+    """(ref cvt.py:70-102.) The Sinkhorn schedule is the reference's fixed
+    one, 3 iterations and a final row normalization, on both robust paths:
+    ``robust_softmax`` has it built in, and the streaming call is given it."""
+
+    sinkhorn_iters = 3
+    final_row_norm = True
 
     def __init__(self, dim: int, proj_kernel: int, kv_proj_stride: int, heads: int,
                  dim_head: int, dropout: float, robust: bool,
@@ -80,8 +85,10 @@ class _CvtAttention(nn.Module):
         # streaming path only serves when it is inactive
         if (self.robust and (not self.training or self.dropout == 0.0)
                 and ops.streaming_dispatch(True, b, self.heads, q.shape[2], k.shape[2],
-                                           self.dim_head)):
-            out = ops.streaming_attention(q, k, v, scale=scale)
+                                           self.dim_head, self.sinkhorn_iters)):
+            out = ops.streaming_attention(q, k, v, scale=scale,
+                                          sinkhorn_iters=self.sinkhorn_iters,
+                                          final_row_norm=self.final_row_norm)
         else:
             dots = ops.matmul_f32(q, k.transpose(-1, -2)) * scale
             attn = ops.robust_softmax(dots, robust=self.robust)

@@ -180,3 +180,23 @@ def test_builders_need_a_card_unless_told_otherwise():
         create_model("cvt_13", num_classes=10)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CvT(num_classes=10, robust=True)
+
+
+def test_sinkhorn_schedule_attributes_are_what_both_paths_run(monkeypatch):
+    """``_CvtAttention.sinkhorn_iters`` and ``final_row_norm`` (the schedule
+    the benchmark's set-up reads) are what the streaming call is given and
+    what ``robust_softmax`` passes to the rect kernels: at 112 px stage 1
+    streams, stages 2 and 3 take the rect path."""
+    calls = []
+    real_stream, real_rect = sa.StreamingAttention.apply, ss.SinkhornSoftmaxRect.apply
+    monkeypatch.setattr(sa.StreamingAttention, "apply", lambda q, k, v, scale, it, fin: (
+        calls.append(("stream", it, fin)) or real_stream(q, k, v, scale, it, fin)))
+    monkeypatch.setattr(ss.SinkhornSoftmaxRect, "apply", lambda s, it, fin: (
+        calls.append(("rect", it, fin)) or real_rect(s, it, fin)))
+    model = CvT(robust=True, device="cpu", **CFG)
+    attns = [m for m in model.modules() if isinstance(m, cvt._CvtAttention)]
+    assert len(attns) == 3
+    assert {(m.sinkhorn_iters, m.final_row_norm) for m in attns} == {(3, True)}
+    model.train()
+    model(torch.randn(2, 112, 112, 3)).sum().backward()
+    assert calls == [("stream", 3, True), ("rect", 3, True), ("rect", 3, True)]
