@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA GPU: builds the hand-written
 kernels, holds them against their plain PyTorch versions, takes a few
-SimpleViT-B/16 (with the fused LayerNorm switch off and on), vit_b_16,
+SimpleViT-B/16 (its block norms on the fused LayerNorm kernels), vit_b_16,
 Swin-T, LeViT-128S, CaiT and CvT-13 @224 and MobileViT-XS @256 bf16 train
 steps through them, and times kernels and steps.
 
@@ -85,8 +85,8 @@ Phases, one line each (or a few):
               statistics); 5 AdamW steps (lr 1e-4, wd 0.05) on one fixed
               batch of 64, robust and vanilla, of SimpleViT-B/16, Swin-T and
               LeViT-128S bf16: finite, falling loss, and the launches per
-              step of each kernel (12 packed, SimpleViT; 12 biased robust,
-              all resident, 0 vanilla, Swin-T; 9 biased (7 resident, 2
+              step of each kernel (12 packed and 24 fused-LN, SimpleViT;
+              12 biased robust, all resident, 0 vanilla, Swin-T; 9 biased (7 resident, 2
               shared-memory) and 2 rect robust, 0 vanilla, LeViT-128S); one
               robust fwd+bwd of swin_v2_t bf16 at batch 32 (N=64, 12
               resident) and of LeViT-256 bf16 at batch 64 (12 biased: 8
@@ -109,14 +109,11 @@ Phases, one line each (or a few):
               batch 64 (9 fused launches each way a robust step, all on the
               resident branch, no other kernel; none vanilla); every earlier
               model's steps count 0 fused launches;
-              a small SimpleViT (D 128) built with NRV_FUSED_LN=1 card vs
-              cpu (4 fused-LN launches each way on the card); small robust
-              f32 VisionTransformers card vs cpu, patch stem and conv stem
-              in train mode (BN statistics), 2 packed launches each way; 5 +
-              5 steps of SimpleViT-B/16 with the switch on (12 packed and 24
-              fused-LN launches each way a step) and of vit_b_16 (12 packed
-              each way a step on (4, no final row norm), 0 fused-LN); every
-              other model's steps count 0 fused-LN launches; every
+              small robust f32 VisionTransformers card vs cpu, patch stem
+              and conv stem in train mode (BN statistics), 2 packed launches
+              each way; 5 + 5 steps of vit_b_16 (12 packed each way a step on
+              (4, no final row norm), 0 fused-LN); every model's steps but
+              SimpleViT-B/16's count 0 fused-LN launches; every
               SimpleViT-B/16 and vit_b_16 step's 12 + 12 packed launches
               are on the resident branch (0 scratch), and the small float32
               models launch the scratch branch
@@ -159,7 +156,6 @@ Phases, one line each (or a few):
               versions, F.layer_norm (bf16 x, weight and bias;
               backward through autograd) and the port's eager
               LayerNorm module; vit_b_16 at batch 256 (MFU from 197 tokens)
-              and SimpleViT-B/16 with the switch on, and its on/off ratio
   6. profile  device time by op and kernel over one robust train step of
               each model (torch.profiler), the top rows; vit_b_16 too
 Every phase logs its wall seconds ("time:" lines). Then the card line
@@ -170,10 +166,8 @@ without printing the last line.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import math
-import os
 import statistics
 import subprocess
 import sys
@@ -738,32 +732,6 @@ def phase_biased_levit_times(ba, torch, dev):
     return result
 
 
-def phase_small_model(torch, dev):
-    """The model wiring through the kernels: a small float32 SimpleViT on the
-    card (kernels) against the same weights on the CPU (plain versions)."""
-    from noise_robust_vit_tpu_torch import create_model
-
-    kw = dict(num_classes=10, image_size=64, robust=True, dim=128, depth=2,
-              heads=2, mlp_dim=256, dim_head=64)
-    cpu = create_model("simple_vit", device="cpu", **kw)
-    gpu = create_model("simple_vit", device=dev, **kw)
-    gpu.load_state_dict(cpu.state_dict())
-    rng = np.random.default_rng(1)
-    x = torch.from_numpy(rng.standard_normal((4, 64, 64, 3), dtype=np.float32))
-    y = torch.from_numpy(rng.integers(0, 10, size=4))
-    outs = []
-    for model, xx, yy in ((cpu, x, y), (gpu, x.to(dev), y.to(dev))):
-        logits = model(xx)
-        torch.nn.functional.cross_entropy(logits.float(), yy).backward()
-        outs.append((logits.detach().cpu(), {k: p.grad.cpu() for k, p in model.named_parameters()}))
-    torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-3)
-    err = max((outs[1][1][k] - g).abs().max().item() for k, g in outs[0][1].items())
-    for k, g in outs[0][1].items():
-        torch.testing.assert_close(outs[1][1][k], g, atol=1e-4, rtol=1e-3, msg=k)
-    log(f"slice: small SimpleViT f32 card vs cpu: logits and grads agree "
-        f"(max grad err {err:.3g})")
-
-
 def phase_train(counts, torch, dev, name, per_step, steps=5, batch=64, image=224):
     """`steps` AdamW steps (lr 1e-4, wd 0.05) of `name` bf16 at full width on
     one fixed batch of `image`-pixel images, robust then vanilla: finite,
@@ -1192,9 +1160,8 @@ def phase_step_times(torch, dev, name, batch, flops, steps=5, windows=3, image=2
     return result
 
 
-def phase_profile(torch, dev, name, batch, rows=25, image=224, tag=""):
-    """Device time by op and kernel over one robust train step; ``tag``
-    marks the log lines of a variant (the switch on)."""
+def phase_profile(torch, dev, name, batch, rows=25, image=224):
+    """Device time by op and kernel over one robust train step."""
     from torch.profiler import ProfilerActivity, profile
 
     from noise_robust_vit_tpu_torch import create_model
@@ -1213,18 +1180,18 @@ def phase_profile(torch, dev, name, batch, rows=25, image=224, tag=""):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state.train_step(x, y)
         torch.cuda.synchronize()
-    log(f"profile: {name}{tag} robust train step, batch {batch}, top rows by device time")
+    log(f"profile: {name} robust train step, batch {batch}, top rows by device time")
     events = prof.key_averages()
     log(events.table(sort_by="cuda_time_total", row_limit=rows))
     # the hand-written kernels (namespace nrv), which the table may rank
     # below its last row
     for evt in events:
         if "nrv::" in evt.key:
-            log(f"profile: {name}{tag} kernel {evt.key[:90]}: {evt.count} launches, "
+            log(f"profile: {name} kernel {evt.key[:90]}: {evt.count} launches, "
                 f"{evt.device_time_total / 1e3:.3f} ms of device time")
     del model, state
     torch.cuda.empty_cache()
-    log(f"time: profile of {name}{tag} {time.perf_counter() - t0:.1f} s")
+    log(f"time: profile of {name} {time.perf_counter() - t0:.1f} s")
 
 
 # The talking-heads kernels' checked shapes: CaiT @224 at batch 128
@@ -1998,10 +1965,9 @@ def phase_fused_times(fa, ba, torch, dev):
 
 
 # The fused LayerNorm kernels' checked shapes, (rows, D, dtypes): SimpleViT-B/16
-# at batch 256 ([256·196, 768] bf16, its 24 + 24 calls a step with
-# NRV_FUSED_LN=1), D of 128, 1024 (the last warp-per-row width), 1280
-# (vit_h's width, one block a row) and 8192 (the gate's largest), ragged
-# row counts
+# at batch 256 ([256·196, 768] bf16, its 24 + 24 calls a step), D of 128,
+# 1024 (the last warp-per-row width), 1280 (vit_h's width, one block a row)
+# and 8192 (the gate's largest), ragged row counts
 LN_MAIN = (50176, 768)
 LN_SHAPES = [(*LN_MAIN, ("bfloat16", "float32")), (500, 128, ("float32", "bfloat16")),
              (1, 768, ("bfloat16",)), (500, 1024, ("float32", "bfloat16")),
@@ -2091,21 +2057,6 @@ def phase_ln_kernels(fl, torch, dev):
     return worst
 
 
-@contextlib.contextmanager
-def fused_ln_switch():
-    """``NRV_FUSED_LN=1`` while models are built inside the block; the
-    variable's earlier state is restored afterwards."""
-    before = os.environ.get("NRV_FUSED_LN")
-    os.environ["NRV_FUSED_LN"] = "1"
-    try:
-        yield
-    finally:
-        if before is None:
-            os.environ.pop("NRV_FUSED_LN")
-        else:
-            os.environ["NRV_FUSED_LN"] = before
-
-
 def card_vs_cpu(torch, dev, build, x, y, counts, train=False):
     """``build(device)`` on the CPU and on the card with the CPU model's
     state: logits, every parameter gradient and the buffers after one
@@ -2137,11 +2088,11 @@ def card_vs_cpu(torch, dev, build, x, y, counts, train=False):
 
 
 def phase_small_fused_ln_model(fl, pa, torch, dev):
-    """The switch's wiring through the fused LayerNorm kernels: a small
-    robust float32 SimpleViT (dim 128, depth 2) built with NRV_FUSED_LN=1 on
-    the card against the same weights on the CPU. Every parameter is
-    perturbed from a seed. 4 fused-LN and 2 packed launches each way on the
-    card, none on the CPU."""
+    """The model wiring through the kernels: a small robust float32
+    SimpleViT (dim 128, depth 2, its block norms on the fused LayerNorm) on
+    the card against the same weights on the CPU (plain versions). Every
+    parameter is perturbed from a seed. 4 fused-LN and 2 packed launches
+    each way on the card, none on the CPU."""
     from noise_robust_vit_tpu_torch import SimpleViT
 
     kw = dict(num_classes=10, image_size=64, patch_size=8, robust=True, dim=128, depth=2,
@@ -2149,8 +2100,7 @@ def phase_small_fused_ln_model(fl, pa, torch, dev):
     gen = torch.Generator().manual_seed(61)
 
     def build(device):
-        with fused_ln_switch():
-            model = SimpleViT(device=device, **kw)
+        model = SimpleViT(device=device, **kw)
         if device == "cpu":
             with torch.no_grad():
                 for p in model.parameters():
@@ -2164,9 +2114,9 @@ def phase_small_fused_ln_model(fl, pa, torch, dev):
     err, _, on_cpu, on_card = card_vs_cpu(torch, dev, build, x, y, counts)
     want = {"fused_ln": (4, 4), "packed": (2, 2)}
     if on_card != want or any(v != (0, 0) for v in on_cpu.values()):
-        raise RuntimeError(f"small SimpleViT with NRV_FUSED_LN=1: launches cpu {on_cpu}, "
-                           f"card {on_card}, expected 0s and {want}")
-    log(f"slice: small SimpleViT f32 robust NRV_FUSED_LN=1 card vs cpu: logits and grads agree "
+        raise RuntimeError(f"small SimpleViT: launches cpu {on_cpu}, card {on_card}, "
+                           f"expected 0s and {want}")
+    log(f"slice: small SimpleViT f32 robust card vs cpu: logits and grads agree "
         f"(max grad err {err:.3g}), launches fused_ln 4/4, packed 2/2 on the card, 0 on the cpu")
 
 
@@ -2241,7 +2191,8 @@ def phase_ln_times(fl, torch, dev, shape=LN_MAIN):
     bias, the weight and bias rounded to bf16: it takes no mixed types; its
     backward to x, weight and bias through autograd: the library
     yardstick) and the port's eager LayerNorm module (x to
-    float32, F.layer_norm, back to bf16: what the switch replaces). Bounds
+    float32, F.layer_norm, back to bf16: what the blocks ran before they
+    took the kernels, and still run at a width outside the gate). Bounds
     from these inputs: forward reads x, scale, bias and writes y; backward
     reads x, dy, scale and writes dx, dscale, dbias; ~8 and ~16 float32
     operations an element."""
@@ -2317,11 +2268,6 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     lap = lap_clock()
-    # every model is built with the plain LayerNorm unless a phase sets the
-    # switch (fused_ln_switch): an exported NRV_FUSED_LN would break the
-    # launch counts
-    if os.environ.pop("NRV_FUSED_LN", None) is not None:
-        log("device: NRV_FUSED_LN cleared from the environment")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"device: {card_line()} | torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2360,7 +2306,6 @@ def main() -> int:
     lap("fused LayerNorm kernel checks")
     # the small float32 models take the scratch branch of the packed kernels
     pa.launches_scratch.reset()
-    phase_small_model(torch, dev)
     phase_small_swin(ba, torch, dev)
     phase_small_levit(ba, ss, torch, dev)
     th_plane_launches = phase_small_cait(th, torch, dev)
@@ -2377,21 +2322,17 @@ def main() -> int:
     lap("small models card vs cpu")
     # the fused q/k/v kernels serve MobileViT's transformers and no site of
     # the earlier models: their paths count 0 fused launches; the fused
-    # LayerNorm serves only models built with NRV_FUSED_LN=1
+    # LayerNorm serves SimpleViT's block norms (D 768) and no other model's
     # every SimpleViT-B/16 and vit_b_16 step runs its 12 + 12 packed
     # launches on the resident branch
     packed = {"packed": pa.launches, "packed_resident": pa.launches_resident,
               "packed_scratch": pa.launches_scratch}
     on_resident = {"packed": 12, "packed_resident": 12, "packed_scratch": 0}
-    counts = phase_train({**packed, "fused": fa.launches, "fused_ln": fl.launches},
-                         torch, dev, "simple_vit_b16",
-                         {r: {**on_resident, "fused": 0, "fused_ln": 0}
-                          for r in (True, False)})["packed_resident"]
-    with fused_ln_switch():
-        counts_ln = phase_train({**packed, "fused_ln": fl.launches}, torch, dev,
-                                "simple_vit_b16",
-                                {r: {**on_resident, "fused_ln": 24} for r in (True, False)})
-    log("slice: simple_vit_b16 above with NRV_FUSED_LN=1")
+    counts_s = phase_train({**packed, "fused": fa.launches, "fused_ln": fl.launches},
+                           torch, dev, "simple_vit_b16",
+                           {r: {**on_resident, "fused": 0, "fused_ln": 24}
+                            for r in (True, False)})
+    counts = counts_s["packed_resident"]
     counts_v = phase_vit_train(pa, fl, torch, dev, {**packed, "fused_ln": fl.launches})
     # every robust Swin-T step runs its 12 + 12 biased launches on the
     # resident branch; LeViT-128S 7 resident (N = 49, 16) and 2 shared (N =
@@ -2473,12 +2414,7 @@ def main() -> int:
     ln_times = phase_ln_times(fl, torch, dev)
     torch.cuda.synchronize()
     lap("fused LayerNorm timing")
-    rates_s = phase_step_times(torch, dev, "simple_vit_b16", 256, vit_train_flops_per_image())
-    with fused_ln_switch():
-        rates_ln = phase_step_times(torch, dev, "simple_vit_b16", 256,
-                                    vit_train_flops_per_image())
-    log("timing: simple_vit_b16 above with NRV_FUSED_LN=1; on/off img/s ratio vanilla "
-        f"{rates_ln[False] / rates_s[False]:.4f}, robust {rates_ln[True] / rates_s[True]:.4f}")
+    phase_step_times(torch, dev, "simple_vit_b16", 256, vit_train_flops_per_image())
     flops_v = vit_train_flops_per_image(cls_token=True)
     log(f"timing: vit_b_16 train FLOPs per image {flops_v / 1e9:.4f} G (197 tokens)")
     rates_vit = phase_step_times(torch, dev, "vit_b_16", 256, flops_v)
@@ -2609,9 +2545,9 @@ def main() -> int:
                      "sinkhorn_attention.py:694", counts_m["fused_resident"]["bwd"],
                      worst_f["resident"]["bwd"], fused_row, "bwd"),
         kernel_entry("fused_ln_fwd", "fused_ln_fwd.cu", "fused_ln.py:90",
-                     counts_ln["fused_ln"]["fwd"], worst_ln["fwd"], ln_times, "fwd"),
+                     counts_s["fused_ln"]["fwd"], worst_ln["fwd"], ln_times, "fwd"),
         kernel_entry("fused_ln_bwd", "fused_ln_bwd.cu", "fused_ln.py:111",
-                     counts_ln["fused_ln"]["bwd"], worst_ln["bwd"], ln_times, "bwd"),
+                     counts_s["fused_ln"]["bwd"], worst_ln["bwd"], ln_times, "bwd"),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

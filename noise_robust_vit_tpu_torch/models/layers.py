@@ -9,7 +9,6 @@ so that ``convert.convert_params`` maps one onto the other by name.
 
 from __future__ import annotations
 
-import os
 from typing import Callable
 
 import torch
@@ -17,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
+from ..ops.cuda.fused_ln import fused_ln_supported
 from ..ops.norms import FusedLayerNorm
 from ..utils import lecun_normal_init, zeros_init
 
@@ -58,15 +58,16 @@ class LayerNorm(nn.LayerNorm):
         return y.to(self.compute_dtype)
 
 
-def _ln_cls() -> type[nn.Module]:
+def _ln_cls(dim: int) -> type[nn.Module]:
     """LayerNorm class of the shared blocks (``FeedForward.norm``,
-    ``Attention.norm``, ``Transformer.norm``): ``FusedLayerNorm``, on the
-    fused LayerNorm kernels, when the environment variable ``NRV_FUSED_LN``
-    is set to anything non-empty, else ``LayerNorm``. The two have the same
-    parameters. The variable is read when a module is built (flax reads it
-    when the model is traced): set it before building a model, and a model
-    built keeps its class whatever the variable says later."""
-    return FusedLayerNorm if os.environ.get("NRV_FUSED_LN") else LayerNorm
+    ``Attention.norm``, ``Transformer.norm``) at feature width ``dim``:
+    ``FusedLayerNorm``, on the fused LayerNorm kernels (compute-dtype x in
+    and y out, float32 moments), where ``dim`` is inside their gate
+    (``fused_ln_supported``: a multiple of 128, at most 8192), else
+    ``LayerNorm``. The two have the same parameters. Outside the gate
+    ``FusedLayerNorm`` would run an eager float32 chain slower than
+    ``F.layer_norm``, so the rule is decided here, once a module is built."""
+    return FusedLayerNorm if fused_ln_supported(dim) else LayerNorm
 
 
 class BatchNorm(nn.Module):
@@ -199,7 +200,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, hidden_dim: int, act: Callable = ops.gelu,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.norm = _ln_cls()(dim, eps=1e-5, dtype=dtype, device=device)
+        self.norm = _ln_cls(dim)(dim, eps=1e-5, dtype=dtype, device=device)
         self.fc1 = Dense(dim, hidden_dim, dtype=dtype, device=device)
         self.fc2 = Dense(hidden_dim, dim, dtype=dtype, device=device)
         self.act = act
@@ -226,7 +227,7 @@ class Attention(nn.Module):
         self.heads, self.dim_head = heads, dim_head
         self.robust = robust
         self.sinkhorn_iters, self.final_row_norm = sinkhorn_iters, final_row_norm
-        self.norm = (_ln_cls()(dim, eps=1e-5, dtype=dtype, device=device) if pre_norm
+        self.norm = (_ln_cls(dim)(dim, eps=1e-5, dtype=dtype, device=device) if pre_norm
                      else None)
         self.to_qkv = Dense(dim, inner * 3, bias=qkv_bias, dtype=dtype, device=device)
         self.to_out = Dense(inner, dim, bias=out_bias, dtype=dtype, device=device)
@@ -269,7 +270,7 @@ class Transformer(nn.Module):
                 qkv_bias=qkv_bias, out_bias=out_bias, dtype=dtype, device=device))
             self.add_module(f"layers_{i}_ff", FeedForward(
                 dim, mlp_dim, act=ff_act, dtype=dtype, device=device))
-        self.norm = (_ln_cls()(dim, eps=1e-5, dtype=dtype, device=device)
+        self.norm = (_ln_cls(dim)(dim, eps=1e-5, dtype=dtype, device=device)
                      if final_norm else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

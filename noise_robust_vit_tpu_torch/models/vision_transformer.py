@@ -6,8 +6,9 @@ A conv patchify stem (``conv_proj``) or a conv-BN-ReLU stem
 token and a learned position embedding, pre-LN encoder blocks (``ln_1``,
 ``self_attention``, ``ln_2``, ``mlp``) and a final ``ln``, an optional
 ``pre_logits`` + tanh, and a zero-init ``head``. Input is NHWC. Every
-LayerNorm has eps 1e-6 and is the plain one: the ``NRV_FUSED_LN`` switch
-does not reach this model, as in JAX.
+LayerNorm has eps 1e-6 and is the plain one, at any width: the model
+builds its own norms, so the shared blocks' width rule (``layers._ln_cls``)
+does not reach it.
 
 The attention is the shared ``Attention`` with biases on q/k/v and the
 output, no pre-norm, and the vendored-MHA robust schedule: 4 Sinkhorn

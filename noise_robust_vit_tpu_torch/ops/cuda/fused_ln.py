@@ -134,10 +134,12 @@ def fused_ln_bwd_cuda(x, scale, dy, eps=1e-5):
     _check(x, scale, [("dy", dy, None, x.shape)])
     rows, d = x.shape
     dx = torch.empty_like(x)
-    dg = torch.zeros(d, dtype=torch.float32, device=x.device)
-    db = torch.zeros(d, dtype=torch.float32, device=x.device)
     if rows == 0:
-        return dx, dg, db
+        return (dx, torch.zeros(d, dtype=torch.float32, device=x.device),
+                torch.zeros(d, dtype=torch.float32, device=x.device))
+    # the sum kernel writes every column of dg and db: no fill
+    dg = torch.empty(d, dtype=torch.float32, device=x.device)
+    db = torch.empty(d, dtype=torch.float32, device=x.device)
     lib = load_library()
     # one row of dg/db partials a backward block (csrc bwd_blocks)
     parts = torch.empty(2, lib.nrv_fused_ln_bwd_blocks(rows, d), d, dtype=torch.float32,

@@ -16,8 +16,8 @@ class FusedLayerNorm(nn.Module):
     """LayerNorm over the last axis on the fused kernels
     (``ops/cuda/fused_ln.py``), with the port's ``LayerNorm`` parameters
     (``weight`` and ``bias``, flax's ``scale`` and ``bias``), so weights carry
-    across unchanged. The shared blocks take it when ``NRV_FUSED_LN`` is set
-    (``models/layers.py::_ln_cls``).
+    across unchanged. The shared blocks take it at a feature width inside
+    the gate (``models/layers.py::_ln_cls``).
 
     As JAX's ``FusedLayerNorm``: the compute dtype is ``dtype or x.dtype``;
     a feature dim inside ``fused_ln_supported`` casts x to it *before* the

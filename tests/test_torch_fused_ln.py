@@ -1,15 +1,15 @@
 """The port's fused LayerNorm against the JAX package's Pallas kernel
 (``ops/pallas/fused_ln.py::fused_layer_norm``), its module
-(``ops/norms.py::FusedLayerNorm``) and the ``NRV_FUSED_LN`` switch of the
-shared blocks.
+(``ops/norms.py::FusedLayerNorm``) and the shared blocks' rule that picks
+it by feature width (``models/layers.py::_ln_cls``).
 
 On the CPU the port runs its plain PyTorch versions (two-pass float32
 moments, the hand-derived backward); the JAX side runs ``fused_layer_norm``
 in interpret mode, as ``tests/test_fused_ln.py`` does, on the same numpy
 inputs and upstream gradient. Tolerances: JAX's own, forward atol and rtol
 1e-5, the gradients of x, scale and bias atol 2e-4 and rtol 1e-4; a bf16
-output to one bf16 ulp (rtol 8e-3); the SimpleViT switch at the suite's
-1e-5 (logits) and 5e-5 (gradients).
+output to one bf16 ulp (rtol 8e-3); the SimpleViT's fused block norms
+against plain ones at the suite's 1e-5 (logits) and 5e-5 (gradients).
 
 The ``gpu`` cases compare the CUDA kernels with the plain versions on the
 card and skip where there is none. JAX is imported only by the tests that
@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from noise_robust_vit_tpu_torch import SimpleViT, convert_params
-from noise_robust_vit_tpu_torch.models.layers import LayerNorm, _ln_cls
+from noise_robust_vit_tpu_torch.models.layers import (Attention, FeedForward, LayerNorm,
+                                                      Transformer, _ln_cls)
 from noise_robust_vit_tpu_torch.ops.cuda import fused_ln as fl
 from noise_robust_vit_tpu_torch.ops.norms import FusedLayerNorm
 
@@ -161,25 +162,59 @@ def test_module_matches_jax_module_bf16_on_f32_input(jx, d):
 
 
 def test_switch_picks_the_class(monkeypatch):
-    monkeypatch.delenv("NRV_FUSED_LN", raising=False)
-    assert _ln_cls() is LayerNorm
-    monkeypatch.setenv("NRV_FUSED_LN", "1")
-    assert _ln_cls() is FusedLayerNorm
+    """The shared blocks' class is a rule on the width alone: the retired
+    ``NRV_FUSED_LN`` variable changes nothing, set or not. A SimpleViT at D
+    128 holds ``FusedLayerNorm`` in its block norms and the plain class in
+    its head norm, as JAX's does with its switch on."""
+    for value in (None, "1"):
+        if value is None:
+            monkeypatch.delenv("NRV_FUSED_LN", raising=False)
+        else:
+            monkeypatch.setenv("NRV_FUSED_LN", value)
+        assert _ln_cls(128) is FusedLayerNorm and _ln_cls(96) is LayerNorm
     model = SimpleViT(device="cpu", **SVIT)
     fused = [n for n, m in model.named_modules() if isinstance(m, FusedLayerNorm)]
     assert fused == ["transformer.layers_0_attn.norm", "transformer.layers_0_ff.norm"]
     assert type(model.head_norm) is LayerNorm  # left plain, as in JAX
 
 
-def _svit_step(params, x, y, fused, monkeypatch):
-    """Logits and gradients of the port's SimpleViT built with or without
-    the switch, loaded with ``params``."""
-    if fused:
-        monkeypatch.setenv("NRV_FUSED_LN", "1")
-    else:
-        monkeypatch.delenv("NRV_FUSED_LN", raising=False)
+@pytest.mark.parametrize("d,fused", [(96, False), (120, False), (144, False), (8320, False),
+                                     (128, True), (768, True), (8192, True)])
+def test_blocks_pick_the_class_by_width(d, fused):
+    """``FeedForward``, ``Attention`` and ``Transformer`` build
+    ``FusedLayerNorm`` where D is inside the kernels' gate (a multiple of
+    128 up to 8192), else the plain ``LayerNorm`` (MobileViT-XS's 96, 120
+    and 144; 8320 past the largest)."""
+    want = FusedLayerNorm if fused else LayerNorm
+    assert fl.fused_ln_supported(d) == fused
+    assert _ln_cls(d) is want
+    blocks = (FeedForward(d, 8, device="meta"), Attention(d, heads=1, dim_head=8, device="meta"),
+              Transformer(d, 0, 1, 8, 8, final_norm=True, device="meta"))
+    for block in blocks:
+        assert type(block.norm) is want
+        assert block.norm.weight.shape == block.norm.bias.shape == (d,)
+
+
+def test_simple_vit_at_768_fuses_its_block_norms():
+    """A depth-1 SimpleViT at SimpleViT-B/16's width: the two block norms
+    are ``FusedLayerNorm``, the head norm the plain class."""
+    model = SimpleViT(image_size=32, patch_size=16, num_classes=4, dim=768, depth=1, heads=12,
+                      mlp_dim=64, device="cpu")
+    by_class = {n: type(m) for n, m in model.named_modules()
+                if isinstance(m, (FusedLayerNorm, LayerNorm))}
+    assert by_class == {"transformer.layers_0_attn.norm": FusedLayerNorm,
+                        "transformer.layers_0_ff.norm": FusedLayerNorm,
+                        "head_norm": LayerNorm}
+
+
+def _svit_step(params, x, y, fused):
+    """Logits and gradients of the port's SimpleViT loaded with ``params``:
+    as built (the block norms on ``FusedLayerNorm`` at D 128), or with
+    every block norm swapped for the plain ``LayerNorm`` before loading."""
     model = SimpleViT(robust=True, device="cpu", **SVIT)
-    monkeypatch.delenv("NRV_FUSED_LN", raising=False)
+    if not fused:
+        for block in (model.transformer.layers_0_attn, model.transformer.layers_0_ff):
+            block.norm = LayerNorm(SVIT["dim"], eps=block.norm.eps, device="cpu")
     assert isinstance(model.transformer.layers_0_ff.norm, FusedLayerNorm) == fused
     model.load_state_dict(convert_params(params), strict=True)
     logits = model(torch.from_numpy(x))
@@ -188,10 +223,11 @@ def _svit_step(params, x, y, fused, monkeypatch):
 
 
 def test_switch_keeps_logits_and_grads_and_matches_jax(jx, monkeypatch):
-    """A small robust SimpleViT (D 128, inside the gate) with and without
-    ``NRV_FUSED_LN``, loaded with the same converted weights: the same
-    logits and gradients, and both match JAX's model applied under the same
-    switch (JAX's FusedLayerNorm in interpret mode)."""
+    """A small robust SimpleViT (D 128, inside the gate) as built, on
+    ``FusedLayerNorm``, and with its block norms swapped for the plain
+    class, loaded with the same converted weights: the same logits and
+    gradients, and both match JAX's model applied with its ``NRV_FUSED_LN``
+    switch on (JAX's FusedLayerNorm in interpret mode)."""
     jax, jnp, _ = jx
     import optax
 
@@ -215,8 +251,8 @@ def test_switch_keeps_logits_and_grads_and_matches_jax(jx, monkeypatch):
     monkeypatch.delenv("NRV_FUSED_LN")
     grads_j = convert_params(jax.device_get(grads_j))
 
-    plain = _svit_step(params, x, y, False, monkeypatch)
-    fused = _svit_step(params, x, y, True, monkeypatch)
+    plain = _svit_step(params, x, y, False)
+    fused = _svit_step(params, x, y, True)
     for logits_t, grads_t in (fused, plain):
         np.testing.assert_allclose(logits_t, np.asarray(logits_j), atol=1e-5, rtol=1e-5)
         assert grads_t.keys() == grads_j.keys()
@@ -317,3 +353,23 @@ def test_module_on_card_launches_inside_the_gate(cuda, d, launched):
     assert outs[0][3] == (0, 0) and outs[1][3] == (launched, launched)
     for a, b in zip(outs[1][:3], outs[0][:3]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_simple_vit_step_launches_the_kernels(cuda):
+    """One bf16 train step of a depth-2 SimpleViT at D 768 runs its four
+    block norms on the kernels: 4 forward and 4 backward launches (the head
+    norm stays plain), and the loss is finite."""
+    from noise_robust_vit_tpu_torch.train import create_train_state
+
+    model = SimpleViT(image_size=32, patch_size=16, num_classes=4, dim=768, depth=2, heads=12,
+                      mlp_dim=256, dtype=torch.bfloat16, device=cuda)
+    state = create_train_state(model)
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn(8, 32, 32, 3, generator=gen, device=cuda).to(torch.bfloat16)
+    y = torch.randint(0, 4, (8,), generator=gen, device=cuda)
+    fl.launches.reset()
+    loss = state.train_step(x, y)
+    torch.cuda.synchronize()
+    assert (fl.launches.fwd, fl.launches.bwd) == (4, 4)
+    assert torch.isfinite(loss)

@@ -13,8 +13,8 @@ kernels were ported), and no other site: every site of SimpleViT at head
 width 32, Swin, LeViT, CaiT and CvT keeps the op it had.
 
 The fused LayerNorm (``FusedLayerNormFn``) is spied on as well: it serves
-the shared blocks' norms of a SimpleViT built with ``NRV_FUSED_LN`` set (D
-128, inside its gate), and no site of any model built without it. The
+the shared blocks' norms of a SimpleViT at D 128 (inside its gate), and no
+site of the models whose block widths lie outside it. The
 torchvision-style VisionTransformer's sites take the packed kernels, both
 modes, on its 4-iteration schedule with no final row norm.
 """
@@ -86,8 +86,6 @@ MODELS = {
                             [("fused_ln", (2, 16, 128)), ("packed", (2, 16, 192)),
                              ("fused_ln", (2, 16, 128))] * 2),
 }
-# built with NRV_FUSED_LN set
-FUSED_LN_MODELS = {"simple_vit_fused_ln"}
 # ops that serve vanilla sites too
 BOTH_MODES = {"packed", "fused_ln"}
 
@@ -118,15 +116,11 @@ def sites(monkeypatch):
 
 
 @pytest.mark.parametrize("name", list(MODELS))
-def test_robust_sites_keep_their_ops(name, sites, monkeypatch):
+def test_robust_sites_keep_their_ops(name, sites):
     """The robust sites in call order; vanilla ones reach no Sinkhorn op and
     no kernel but the packed one and the fused LayerNorm, which serve both
     modes."""
     cls, kwargs, image, want = MODELS[name]
-    if name in FUSED_LN_MODELS:
-        monkeypatch.setenv("NRV_FUSED_LN", "1")
-    else:
-        monkeypatch.delenv("NRV_FUSED_LN", raising=False)
     torch.manual_seed(0)
     x = torch.randn(2, image, image, 3)
     cls(robust=False, device="cpu", **kwargs)(x)
