@@ -37,7 +37,7 @@ import math
 
 import torch
 
-from .build import LaunchCounts, ptr, raise_on, stream
+from .build import LaunchCounts, by_device, ptr, raise_on, stream
 from .plain import attention_bwd_plain, attention_fwd_plain, num_vecs
 
 __all__ = [
@@ -392,25 +392,15 @@ def biased_attention_fwd(q, k, v, bias, scale, robust=False, iters=3,
                          final_row=True, nw=1, no_bias=False):
     """Forward by device: the kernel for a CUDA tensor, the plain version for
     a CPU tensor."""
-    if q.is_cuda:
-        return biased_attention_fwd_cuda(q, k, v, bias, scale, robust, iters,
-                                         final_row, nw, no_bias)
-    if q.device.type != "cpu":
-        raise ValueError(f"biased attention: no path for device {q.device}")
-    return biased_attention_fwd_plain(q, k, v, bias, scale, robust, iters,
-                                      final_row, nw, no_bias)
+    return by_device(biased_attention_fwd_cuda, biased_attention_fwd_plain, q, k, v, bias,
+                     scale, robust, iters, final_row, nw, no_bias)
 
 
 def biased_attention_bwd(q, k, v, bias, dout, vecs, scale, robust=False,
                          iters=3, final_row=True, nw=1, no_bias=False):
     """Backward by device, as ``biased_attention_fwd``."""
-    if q.is_cuda:
-        return biased_attention_bwd_cuda(q, k, v, bias, dout, vecs, scale, robust,
-                                         iters, final_row, nw, no_bias)
-    if q.device.type != "cpu":
-        raise ValueError(f"biased attention: no path for device {q.device}")
-    return biased_attention_bwd_plain(q, k, v, bias, dout, vecs, scale, robust,
-                                      iters, final_row, nw, no_bias)
+    return by_device(biased_attention_bwd_cuda, biased_attention_bwd_plain, q, k, v, bias,
+                     dout, vecs, scale, robust, iters, final_row, nw, no_bias)
 
 
 class BiasedAttention(torch.autograd.Function):

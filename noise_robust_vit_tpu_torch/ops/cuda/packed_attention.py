@@ -38,7 +38,7 @@ import ctypes
 
 import torch
 
-from .build import LaunchCounts, ptr, raise_on
+from .build import LaunchCounts, by_device, ptr, raise_on
 from .plain import attention_bwd_plain, attention_fwd_plain, num_vecs
 
 __all__ = [
@@ -325,25 +325,15 @@ def packed_attention_fwd(qkv, heads, dim_head, scale, robust=False, iters=3,
                          final_row=True):
     """Forward by device: the kernel for a CUDA tensor, the plain version for
     a CPU tensor."""
-    if qkv.is_cuda:
-        return packed_attention_fwd_cuda(qkv, heads, dim_head, scale, robust,
-                                         iters, final_row)
-    if qkv.device.type != "cpu":
-        raise ValueError(f"packed attention: no path for device {qkv.device}")
-    return packed_attention_fwd_plain(qkv, heads, dim_head, scale, robust,
-                                      iters, final_row)
+    return by_device(packed_attention_fwd_cuda, packed_attention_fwd_plain, qkv, heads,
+                     dim_head, scale, robust, iters, final_row)
 
 
 def packed_attention_bwd(qkv, dout, vecs, heads, dim_head, scale, robust=False,
                          iters=3, final_row=True):
     """Backward by device, as ``packed_attention_fwd``."""
-    if qkv.is_cuda:
-        return packed_attention_bwd_cuda(qkv, dout, vecs, heads, dim_head,
-                                         scale, robust, iters, final_row)
-    if qkv.device.type != "cpu":
-        raise ValueError(f"packed attention: no path for device {qkv.device}")
-    return packed_attention_bwd_plain(qkv, dout, vecs, heads, dim_head, scale,
-                                      robust, iters, final_row)
+    return by_device(packed_attention_bwd_cuda, packed_attention_bwd_plain, qkv, dout, vecs,
+                     heads, dim_head, scale, robust, iters, final_row)
 
 
 class PackedAttention(torch.autograd.Function):

@@ -314,31 +314,76 @@ def _assert_kernel_matches(got, want):
 
 
 def _card_inputs(seed, shape, device, dtype):
-    q, k, v, bias, g = (torch.from_numpy(t).to(device) for t in _inputs(seed, *shape))
-    return q.to(dtype), k.to(dtype), v.to(dtype), bias, g.to(dtype)
+    """q, k, v, the bias and the upstream gradient, drawn on the card (the
+    main paths' shapes hold hundreds of millions of entries)."""
+    bw, h, n, d, dv, nw = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, g = (torch.randn(s, generator=gen, device=device).to(dtype)
+                  for s in ((bw, h, n, d), (bw, h, n, d), (bw, h, n, dv), (bw, h, n, dv)))
+    return q, k, v, torch.randn((nw, h, n, n), generator=gen, device=device), g
 
 
+# small shapes, then the main paths': Swin-T's four stages at batch 128 with
+# their window counts, swin_v2_t's N = 64 (stages 0 and 3 at batch 32),
+# LeViT-128S's three stages at batch 256 (DV 32) and LeViT-256's stages 0
+# and 1 at batch 64 (DV 64; at N = 196 the shared-memory backward forms o/a
+# and t1 32 columns at a time)
 CARD_SHAPES = [(8, 3, 23, 32, 32, 4), (4, 2, 17, 16, 32, 1), (64, 3, 49, 32, 32, 16),
                (16, 3, 64, 32, 32, 4), (4, 4, 196, 16, 32, 1), (32, 8, 49, 64, 64, 1),
-               (4, 4, 196, 32, 64, 1), (2, 2, 196, 16, 128, 1)]
+               (4, 4, 196, 32, 64, 1), (2, 2, 196, 16, 128, 1),
+               (8192, 3, 49, 32, 32, 64), (2048, 6, 49, 32, 32, 16), (512, 12, 49, 32, 32, 4),
+               (128, 24, 49, 32, 32, 1), (1568, 3, 64, 32, 32, 49), (32, 24, 64, 32, 32, 1),
+               (256, 4, 196, 16, 32, 1), (256, 6, 49, 16, 32, 1), (256, 8, 16, 16, 32, 1),
+               (64, 4, 196, 32, 64, 1), (64, 6, 49, 32, 64, 1)]
+CARD_MODES = MODES + [(True, 4, True)]
+CARD_MODE_IDS = MODE_IDS + ["robust-4-final"]
+
+
+def _assert_rule_branch_launched(shape, mode, dtype):
+    """One launch each way, on the branch the rule picks, none on the other."""
+    branch = ba.biased_branch(*shape[2:5], dtype, mode[0], mode[1])
+    for name, c in (("resident", ba.launches_resident), ("shared", ba.launches_shared)):
+        assert (c.fwd, c.bwd) == ((1, 1) if name == branch else (0, 0)), name
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("mode", CARD_MODES, ids=CARD_MODE_IDS)
 @pytest.mark.parametrize("shape", CARD_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain(cuda, shape, mode, dtype):
+    """Each call on the branch the rule picks; bf16 (either branch) gives the
+    same bits twice."""
     robust, iters, final_row = mode
     ts = _card_inputs(6, shape, cuda, dtype)
-    _assert_kernel_matches(*_kernel_vs_plain(ts, shape[-1], robust, iters, final_row))
+    for c in (ba.launches_resident, ba.launches_shared):
+        c.reset()
+    got, want = _kernel_vs_plain(ts, shape[-1], robust, iters, final_row)
+    _assert_rule_branch_launched(shape, mode, dtype)
+    _assert_kernel_matches(got, want)
+    if dtype == torch.bfloat16:
+        again, _ = _kernel_vs_plain(ts, shape[-1], robust, iters, final_row)
+        assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("mode", CARD_MODES, ids=CARD_MODE_IDS)
 def test_kernel_no_bias_matches_plain(cuda, mode):
+    """Twins' local attention with no bias: D = DV = 64, float32 and, at
+    its batch of 8192 windows, bf16 too (the resident branch, the same
+    bits twice)."""
     robust, iters, final_row = mode
     ts = _card_inputs(7, (32, 8, 49, 64, 64, 1), cuda, torch.float32)
     _assert_kernel_matches(*_kernel_vs_plain(ts, 1, robust, iters, final_row, True))
+    for dtype in (torch.float32, torch.bfloat16):
+        ts = _card_inputs(7, (8192, 8, 49, 64, 64, 1), cuda, dtype)
+        for c in (ba.launches_resident, ba.launches_shared):
+            c.reset()
+        got, want = _kernel_vs_plain(ts, 1, robust, iters, final_row, True)
+        _assert_rule_branch_launched((8192, 8, 49, 64, 64), mode, dtype)
+        _assert_kernel_matches(got, want)
+        if dtype == torch.bfloat16:
+            again, _ = _kernel_vs_plain(ts, 1, robust, iters, final_row, True)
+            assert all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
 
 
 @pytest.mark.gpu
@@ -467,16 +512,23 @@ def test_branches_share_the_residual_rows(cuda, fwd_branch, bwd_branch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", MODES, ids=_mode_id)
+@pytest.mark.parametrize("mode", CARD_MODES, ids=_mode_id)
 def test_shared_branch_forced_in_bf16(cuda, mode):
-    """The shared-memory kernels still take bf16 at Swin-T's shape when asked."""
-    ts = _card_inputs(25, (64, 3, 49, 32, 32, 16), cuda, torch.bfloat16)
-    for c in (ba.launches_resident, ba.launches_shared):
-        c.reset()
-    _assert_kernel_matches(*_branch_vs_plain(ts, 16, mode, fwd_branch="shared",
-                                             bwd_branch="shared"))
-    assert (ba.launches_shared.fwd, ba.launches_shared.bwd) == (1, 1)
-    assert (ba.launches_resident.fwd, ba.launches_resident.bwd) == (0, 0)
+    """The shared-memory kernels still take bf16 at Swin-T's stage-0 shape
+    when asked, at a small batch and at its batch of 128 (8192 windows),
+    and give the same bits twice."""
+    for shape in ((64, 3, 49, 32, 32, 16), (8192, 3, 49, 32, 32, 64)):
+        ts = _card_inputs(25, shape, cuda, torch.bfloat16)
+        for c in (ba.launches_resident, ba.launches_shared):
+            c.reset()
+        got, want = _branch_vs_plain(ts, shape[-1], mode, fwd_branch="shared",
+                                     bwd_branch="shared")
+        _assert_kernel_matches(got, want)
+        assert (ba.launches_shared.fwd, ba.launches_shared.bwd) == (1, 1)
+        assert (ba.launches_resident.fwd, ba.launches_resident.bwd) == (0, 0)
+        again, _ = _branch_vs_plain(ts, shape[-1], mode, fwd_branch="shared",
+                                    bwd_branch="shared")
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), shape
 
 
 @pytest.mark.gpu

@@ -392,7 +392,13 @@ CARD_SHAPES = [(2048, 256, 8, 8), (2048, 64, 8, 8), (2048, 16, 8, 8), (6, 50, 16
 @pytest.mark.parametrize("mode", MODES, ids=_mode_id)
 @pytest.mark.parametrize("shape", CARD_SHAPES, ids=_ids)
 def test_kernel_matches_plain(cuda, shape, mode, dtype):
+    """One launch each way, on the branch the rule picks, none on the other."""
+    for c in (fa.launches_resident, fa.launches_recompute):
+        c.reset()
     assert_kernel_matches(*_kernel_vs_plain(*card_inputs(cuda, 6, shape, dtype), *mode))
+    rule = fa.fused_branch(*shape[1:], dtype, mode[0], mode[1])
+    for name, c in (("resident", fa.launches_resident), ("recompute", fa.launches_recompute)):
+        assert (c.fwd, c.bwd) == ((1, 1) if name == rule else (0, 0)), name
 
 
 @pytest.mark.gpu
@@ -406,11 +412,13 @@ def test_kernel_matches_plain_at_short_and_long_schedules(cuda, iters):
 @pytest.mark.parametrize("shape", CARD_SHAPES[:3], ids=_ids)
 def test_kernel_repeats_bit_for_bit(cuda, shape):
     """No atomics: every sum runs in a fixed order inside one thread, so two
-    runs give the same bits."""
-    inputs = card_inputs(cuda, 8, shape, torch.bfloat16)
-    first = _kernel_vs_plain(*inputs, True, 3, True)[0]
-    again = _kernel_vs_plain(*inputs, True, 3, True)[0]
-    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    runs give the same bits, bf16 (the resident kernels) and float32 (the
+    recompute kernels)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        inputs = card_inputs(cuda, 8, shape, dtype)
+        first = _kernel_vs_plain(*inputs, True, 3, True)[0]
+        again = _kernel_vs_plain(*inputs, True, 3, True)[0]
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), dtype
 
 
 @pytest.mark.gpu

@@ -214,7 +214,8 @@ def _assert_kernel_matches(got, want):
 @pytest.mark.parametrize("mode", MODES, ids=lambda m: f"robust{int(m[0])}-{m[1]}-{int(m[2])}")
 @pytest.mark.parametrize("shape", [(4, 196, 12, 64), (2, 197, 4, 64),
                                    (2, 40, 2, 128), (2, 65, 3, 32),
-                                   (1, 300, 2, 64), (1, pa.MAX_N, 1, 64)],
+                                   (1, 300, 2, 64), (1, pa.MAX_N, 1, 64),
+                                   (8, 196, 12, 64), (8, 197, 12, 64), (256, 196, 12, 64)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain_f32(cuda, mode, shape):
     robust, iters, final_row = mode
@@ -226,7 +227,8 @@ def test_kernel_matches_plain_f32(cuda, mode, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", MODES, ids=lambda m: f"robust{int(m[0])}-{m[1]}-{int(m[2])}")
 @pytest.mark.parametrize("shape", [(4, 196, 12, 64), (2, 197, 4, 64),
-                                   (2, 40, 2, 128), (2, 65, 3, 32)],
+                                   (2, 40, 2, 128), (2, 65, 3, 32),
+                                   (8, 196, 12, 64), (8, 400, 12, 64)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain_bf16(cuda, mode, shape):
     robust, iters, final_row = mode
@@ -267,11 +269,14 @@ def _forced_vs_plain(qkv, tang, h, d, robust, iters, final_row, branch):
 @pytest.mark.parametrize("mode", MODES + [(True, 1, False), (True, 8, True)],
                          ids=lambda m: f"robust{int(m[0])}-{m[1]}-{int(m[2])}")
 @pytest.mark.parametrize("shape", [(4, 196, 12, 64), (2, 197, 4, 64), (2, 17, 2, 64),
-                                   (3, 130, 2, 64), (1, 198, 2, 64)],
+                                   (3, 130, 2, 64), (1, 198, 2, 64), (8, 196, 12, 64),
+                                   (256, 196, 12, 64), (256, 197, 12, 64)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_both_branches_match_plain_bf16(cuda, branch, mode, shape):
     """Each branch on bf16 inside the resident range, against the plain
-    version; the resident kernels also give the same bits twice."""
+    version, at SimpleViT-B/16's and vit_b_16's batch of 256 too, where
+    every persistent block takes many heads in turn; the resident kernels
+    also give the same bits twice."""
     robust, iters, final_row = mode
     b, n, h, d = shape
     qkv, tang = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in _inputs(9, b, n, h, d))
@@ -280,6 +285,17 @@ def test_both_branches_match_plain_bf16(cuda, branch, mode, shape):
     if branch == "resident":
         again, _ = _forced_vs_plain(qkv, tang, h, d, robust, iters, final_row, branch)
         assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.gpu
+def test_branch_rule_matches_library(cuda):
+    """The Python rule and the library's (nrv_packed_resident_fits) agree."""
+    from noise_robust_vit_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library()
+    for n in range(1, 1025):
+        for d in (32, 64, 128):
+            assert bool(lib.nrv_packed_resident_fits(n, d)) == pa._resident_fits(n, d), (n, d)
 
 
 @pytest.mark.gpu

@@ -226,8 +226,15 @@ def _assert_kernel_matches(got, want):
                                        msg=f"output {i}")
 
 
+# small shapes, then the main paths': LeViT-128S's subsample logits at
+# batch 256 and LeViT-256's at batch 64, CvT-13 stage 3's at batch 128,
+# deepvit's square logits at batch 128, 196 × 196 (nest_tiny's N) at 4 and 3
+# heads, and matrices held in a global scratch slot
 CARD_SHAPES = [(16, 8, 49, 196), (16, 16, 16, 49), (8, 4, 196, 196), (4, 8, 197, 197),
-               (8, 3, 33, 7), (8, 3, 45, 45), (4, 257, 257), (2, 300, 96), (2, 2, 640, 640)]
+               (8, 3, 33, 7), (8, 3, 45, 45), (4, 257, 257), (2, 300, 96), (2, 2, 640, 640),
+               (256, 8, 49, 196), (256, 16, 16, 49), (64, 8, 49, 196), (64, 12, 16, 49),
+               (128, 6, 196, 49), (128, 8, 197, 197), (64, 4, 196, 196), (64, 3, 196, 196),
+               (4, 2, 640, 640), (8, 300, 96)]
 
 
 @pytest.mark.gpu
@@ -262,10 +269,13 @@ def test_kernel_repeats_bit_for_bit(cuda, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(4, 3, 45, 45), (4, 3, 49, 196)])
+@pytest.mark.parametrize("shape", [(4, 3, 45, 45), (4, 3, 49, 196), (128, 8, 197, 197)])
 def test_autograd_on_card_launches_kernels(cuda, shape):
     """``robust_softmax`` on CUDA logits goes through one forward and one
-    backward kernel, and agrees with the CPU path."""
+    backward kernel, and agrees with the CPU path, at deepvit's float32
+    square logits too (the call deepvit, rvt, nest and cct make, and Swin's
+    robust fallback; no ported model makes it yet); every row sums to one
+    (the final row norm)."""
     logits, g = _inputs(4, shape)
     x = torch.from_numpy(logits).requires_grad_(True)
     want = ops.robust_softmax(x, robust=True)
@@ -277,6 +287,7 @@ def test_autograd_on_card_launches_kernels(cuda, shape):
     out.backward(torch.from_numpy(g).to(cuda))
     torch.cuda.synchronize()
     assert (counts.fwd, counts.bwd) == (1, 1)
+    assert (out.detach().sum(-1) - 1).abs().max().item() <= 1e-4
     np.testing.assert_allclose(out.detach().cpu().numpy(), want.detach().numpy(),
                                atol=1e-4, rtol=1e-3)
     np.testing.assert_allclose(xc.grad.cpu().numpy(), x.grad.numpy(), atol=1e-4, rtol=1e-3)

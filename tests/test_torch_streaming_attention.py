@@ -355,7 +355,13 @@ CARD_SHAPES = [(2, 1, 3136, 784, 64), (4, 3, 784, 196, 64), (2, 2, 300, 130, 24)
 @pytest.mark.parametrize("schedule", SCHEDULES, ids=lambda s: f"{s[0]}-{int(s[1])}")
 @pytest.mark.parametrize("shape", CARD_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_kernel_matches_plain(cuda, shape, schedule, dtype):
+    """One launch each way, on the branch the rule picks, none on the other."""
+    for c in (sa.launches_split, sa.launches_tile):
+        c.reset()
     assert_kernel_matches(*_kernel_vs_plain(*card_inputs(cuda, 6, shape, dtype), *schedule))
+    rule = sa.streaming_branch(*shape[2:], dtype, schedule[0])
+    for name, c in (("split", sa.launches_split), ("tile", sa.launches_tile)):
+        assert (c.fwd, c.bwd) == ((1, 1) if name == rule else (0, 0)), name
 
 
 @pytest.mark.gpu
@@ -395,10 +401,15 @@ def test_autograd_on_card_launches_kernels(cuda):
         np.testing.assert_allclose(a.grad.cpu().numpy(), b.grad.numpy(), atol=1e-4, rtol=1e-3)
 
 
+# CvT-13's stages 1 and 2 and Twins-SVT-S's stage-1 global attention (8
+# heads, 3136 queries against 64 subsampled keys) at their batches of 128
+# and 16
+MAIN_SHAPES = [(128, 1, 3136, 784, 64), (128, 3, 784, 196, 64), (16, 8, 3136, 64, 64)]
 # The split branch at CvT-13's stages 1 and 2 (small batch), Twins-SVT-S's
-# global stages 1 and 2 (8 heads, 64 and 16 keys), ragged both ways, one key
+# global stages 1 and 2 (8 heads, 64 and 16 keys), ragged both ways, one key,
+# and the main paths
 SPLIT_SHAPES = [(2, 1, 3136, 784, 64), (4, 3, 784, 196, 64), (2, 8, 3136, 64, 64),
-                (2, 8, 784, 16, 64), (3, 2, 37, 21, 64), (1, 1, 5, 1, 64)]
+                (2, 8, 784, 16, 64), (3, 2, 37, 21, 64), (1, 1, 5, 1, 64), *MAIN_SHAPES]
 SPLIT_SCHEDULES = [(3, True), (4, False), (1, True)]
 
 
@@ -407,12 +418,33 @@ SPLIT_SCHEDULES = [(3, True), (4, False), (1, True)]
 @pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_split_kernels_match_plain(cuda, shape, schedule):
     """bf16: out, dq, dk, dv atol and rtol 2e-2, av and bv 1e-3; one launch
-    each way, counted on the split branch."""
+    each way, counted on the split branch; the same bits twice."""
+    inputs = card_inputs(cuda, 13, shape, torch.bfloat16)
     sa.launches_split.reset()
-    got, want = _kernel_vs_plain(*card_inputs(cuda, 13, shape, torch.bfloat16), *schedule,
-                                 branch="split")
+    got, want = _kernel_vs_plain(*inputs, *schedule, branch="split")
     assert (sa.launches_split.fwd, sa.launches_split.bwd) == (1, 1)
     assert_kernel_matches(got, want)
+    again = _kernel_vs_plain(*inputs, *schedule, branch="split")[0]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", SPLIT_SCHEDULES, ids=lambda s: f"{s[0]}-{int(s[1])}")
+@pytest.mark.parametrize("shape", MAIN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_tile_branch_forced_in_bf16(cuda, shape, schedule):
+    """The tile kernels still take bf16 at the main paths' shapes when
+    asked: one launch each way on the tile branch, none on the split one;
+    at CvT-13's stage 1, (3, final), the same bits twice."""
+    inputs = card_inputs(cuda, 18, shape, torch.bfloat16)
+    for c in (sa.launches_split, sa.launches_tile):
+        c.reset()
+    got, want = _kernel_vs_plain(*inputs, *schedule, branch="tile")
+    assert (sa.launches_tile.fwd, sa.launches_tile.bwd) == (1, 1)
+    assert (sa.launches_split.fwd, sa.launches_split.bwd) == (0, 0)
+    assert_kernel_matches(got, want)
+    if shape == MAIN_SHAPES[0] and schedule == (3, True):
+        again = _kernel_vs_plain(*inputs, *schedule, branch="tile")[0]
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.gpu

@@ -326,9 +326,11 @@ def _card_inputs(cuda, seed, shape, dtype=torch.float32):
 
 
 # CaiT's N, ragged N, 16 heads, the largest matrix at 4 iterations (224),
-# one head
+# one head; then CaiT @224 at its batch of 128 and at 16, ragged N at a
+# larger batch, 16 heads at batch 8
 CARD_SHAPES = [(4, 8, 196, 196), (4, 8, 197, 197), (3, 4, 21, 21), (2, 16, 196, 196),
-               (2, 2, 224, 224), (5, 1, 7, 7)]
+               (2, 2, 224, 224), (5, 1, 7, 7), (128, 8, 196, 196), (16, 8, 196, 196),
+               (4, 4, 21, 21), (8, 16, 196, 196)]
 # every card shape on the plane branch (forced), and on the cluster branch
 # where the rule sends it there (the rule does not depend on the dtype)
 CARD_CASES = [(shape, branch) for shape in CARD_SHAPES for branch in th.BRANCHES
@@ -341,8 +343,13 @@ CARD_CASES = [(shape, branch) for shape in CARD_SHAPES for branch in th.BRANCHES
 @pytest.mark.parametrize("shape,branch", CARD_CASES,
                          ids=["x".join(map(str, s)) + "-" + b for s, b in CARD_CASES])
 def test_kernel_matches_plain(cuda, shape, branch, schedule, dtype):
+    """One launch each way, on the branch asked for and on no other."""
     dots, g, pre, post = _card_inputs(cuda, 7, shape, dtype)
+    for counts in (th.launches_cluster, th.launches_plane):
+        counts.reset()
     _assert_kernel_matches(*_kernel_vs_plain(dots, g, pre, post, *schedule, branch=branch))
+    for name, counts in (("cluster", th.launches_cluster), ("plane", th.launches_plane)):
+        assert (counts.fwd, counts.bwd) == ((1, 1) if name == branch else (0, 0)), name
 
 
 @pytest.mark.gpu
@@ -359,7 +366,9 @@ def test_kernel_matches_plain_at_every_iteration_count(cuda, iters, final_row, b
 @pytest.mark.parametrize("shape,branch", [((16, 8, 196, 196), "plane"),
                                           ((4, 16, 197, 197), "plane"),
                                           ((16, 8, 196, 196), "cluster"),
-                                          ((4, 8, 197, 197), "cluster")])
+                                          ((4, 8, 197, 197), "cluster"),
+                                          ((128, 8, 196, 196), "plane"),
+                                          ((128, 8, 196, 196), "cluster")])
 def test_kernel_repeats_bit_for_bit(cuda, shape, branch):
     """No atomics: d pre and d post are summed through partials in a fixed
     order (per item on the plane branch, per (image, strip) on the cluster

@@ -22,9 +22,9 @@ MODELS = ("simple_vit", SWIN)
 CPU = torch.device("cpu")
 
 
-def _state(name: str, seed: int = 3):
-    """A small robust model's train state, its weights and stochastic-depth
-    draws from ``seed``."""
+def _state(name: str, seed: int = 3, device=CPU):
+    """A small robust model's train state on ``device``, its weights and
+    stochastic-depth draws from ``seed``."""
     if SWIN not in factory._REGISTRY:
         @factory.register_model(SWIN)
         def _swin(num_classes, image_size, robust, dtype, device=None, **kw):
@@ -33,15 +33,15 @@ def _state(name: str, seed: int = 3):
                               device=device)
 
     sizes = {"dim": 64, "depth": 2, "heads": 2, "mlp_dim": 128} if name == "simple_vit" else {}
-    model = create_model(name, num_classes=10, image_size=16, robust=True, device=CPU,
+    model = create_model(name, num_classes=10, image_size=16, robust=True, device=device,
                          seed=seed, **sizes)
     return create_train_state(model, lr=1e-3, weight_decay=0.05)
 
 
-def _batches(n: int = 3):
+def _batches(n: int = 3, device=CPU):
     gen = torch.Generator().manual_seed(11)
-    return [(torch.randn(4, 16, 16, 3, generator=gen),
-             torch.randint(0, 10, (4,), generator=gen)) for _ in range(n)]
+    return [(torch.randn(4, 16, 16, 3, generator=gen).to(device),
+             torch.randint(0, 10, (4,), generator=gen).to(device)) for _ in range(n)]
 
 
 def _traced(name: str, steps: int = 3, untraced: int = 0):
@@ -62,16 +62,28 @@ def test_tracer_is_off_by_default():
     assert _state("simple_vit").tracer is None
 
 
-@pytest.mark.parametrize("name", MODELS)
-def test_step_is_bit_identical_with_the_tracer_on(name):
-    off, on = _state(name), _state(name)
-    on.tracer = StepTracer(CPU)
+@pytest.mark.parametrize(
+    "name,device", [*((n, "cpu") for n in MODELS),
+                    *(pytest.param(n, "cuda", marks=pytest.mark.gpu) for n in MODELS)],
+    ids=[*MODELS, *(f"{n}-cuda" for n in MODELS)])
+def test_step_is_bit_identical_with_the_tracer_on(name, device):
+    """Three states, the tracer off, on and off, take the same steps: losses
+    and parameters bit for bit equal (on the card, through its kernels and
+    CUDA events)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    device = torch.device(device)
+    off, on, again = (_state(name, device=device) for _ in range(3))
+    on.tracer = StepTracer(device)
     on.tracer.start()
-    for images, labels in _batches():
-        assert torch.equal(off.train_step(images, labels), on.train_step(images, labels))
-    for (n, p), (m, q) in zip(off.model.named_parameters(), on.model.named_parameters()):
-        assert n == m and torch.equal(p, q), n
-    assert off.step == on.step == 3
+    for images, labels in _batches(device=device):
+        loss = off.train_step(images, labels)
+        assert torch.equal(loss, on.train_step(images, labels))
+        assert torch.equal(loss, again.train_step(images, labels))
+    for (n, p), (m, q), (_, r) in zip(off.model.named_parameters(), on.model.named_parameters(),
+                                      again.model.named_parameters()):
+        assert n == m and torch.equal(p, q) and torch.equal(p, r), n
+    assert off.step == on.step == again.step == 3
     assert len(on.tracer.drain()["records"]) == 3
 
 

@@ -25,10 +25,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch_kernel_times import SWIN_T_STAGE0, card_line, cuda_ms
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import chip_smoke  # noqa: E402
 from noise_robust_vit_tpu_torch.ops.cuda import biased_attention as ba  # noqa: E402
 from noise_robust_vit_tpu_torch.ops.cuda import build  # noqa: E402
 
@@ -64,7 +64,7 @@ def main(argv: list[str]) -> int:
     specs = argv or ["2/2", "3/3", "4/4", "4/3"]
     libs = {spec: build_variant(spec) for spec in specs}
     dev = torch.device("cuda")
-    (bw, h, n, d), nw = chip_smoke.SWIN_T_STAGES[0]
+    (bw, h, n, d), nw = SWIN_T_STAGE0
     rng = np.random.default_rng(0)
     q, k, v, g = (torch.from_numpy(rng.standard_normal((bw, h, n, d), dtype=np.float32))
                   .to(dev, torch.bfloat16) for _ in range(4))
@@ -81,12 +81,12 @@ def main(argv: list[str]) -> int:
             err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
             if err > 2e-2:
                 raise RuntimeError(f"{spec}: kernel disagrees with the plain version ({err})")
-            fwd = chip_smoke.cuda_ms(lambda: ba.biased_attention_fwd_cuda(q, k, v, bias, *args), 20)
-            bwd = chip_smoke.cuda_ms(
+            fwd = cuda_ms(lambda: ba.biased_attention_fwd_cuda(q, k, v, bias, *args), 20)
+            bwd = cuda_ms(
                 lambda: ba.biased_attention_bwd_cuda(q, k, v, bias, g, vecs, *args), 20)
             print(f"robust={int(robust)} {spec}: "
                   f"fwd {fwd:.4f} ms bwd {bwd:.4f} ms max err {err:.3g}", flush=True)
-    print(chip_smoke.card_line())
+    print(card_line())
     return 0
 
 

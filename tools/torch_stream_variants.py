@@ -26,12 +26,11 @@ import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
+from torch_kernel_times import CVT_S1, CVT_S2, card_line, cuda_ms, stream_inputs
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import chip_smoke  # noqa: E402
 from noise_robust_vit_tpu_torch.ops.cuda import build  # noqa: E402
 from noise_robust_vit_tpu_torch.ops.cuda import streaming_attention as sa  # noqa: E402
 
@@ -60,9 +59,9 @@ def main(argv: list[str]) -> int:
     if not dirs:
         return 1
     dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    for label, shape in (("stage 1", chip_smoke.CVT_S1), ("stage 2", chip_smoke.CVT_S2)):
-        q, k, v, g = chip_smoke.stream_inputs(torch, dev, rng, shape, torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for label, shape in (("stage 1", CVT_S1), ("stage 2", CVT_S2)):
+        q, k, v, g = stream_inputs(gen, shape, torch.bfloat16)
         scale = shape[-1] ** -0.5
         want = sa.streaming_attention_fwd_plain(q, k, v, scale)
         want = (*want, *sa.streaming_attention_bwd_plain(q, k, v, g, *want[1:], scale))
@@ -81,15 +80,15 @@ def main(argv: list[str]) -> int:
                 print(f"{label} {list(shape)} {d}: check failed: {err}", flush=True)
                 continue
             av, bv = got[1:3]
-            fwd = chip_smoke.cuda_ms(
+            fwd = cuda_ms(
                 lambda: sa.streaming_attention_fwd_cuda(q, k, v, scale, branch=branch), 10)
-            bwd = chip_smoke.cuda_ms(
+            bwd = cuda_ms(
                 lambda: sa.streaming_attention_bwd_cuda(q, k, v, g, av, bv, scale,
                                                         branch=branch), 10)
             print(f"{label} {list(shape)} {d}: fwd {fwd:.4f} ms bwd {bwd:.4f} ms", flush=True)
         del q, k, v, g, want, got
         torch.cuda.empty_cache()
-    print(chip_smoke.card_line())
+    print(card_line())
     return 0
 
 

@@ -10,7 +10,7 @@ library: one as it is, one with ``clock64()`` timers behind the
 adds the cycles since the previous marker to the phase's global sum). Then,
 at CaiT's dots ``[128, 8, 196, 196]`` float32, robust (3, final) unless
 given other arguments: every version against the plain version (out and
-d dots, as ``chip_smoke.py`` holds them), its forward and backward times in
+d dots, as ``tests/test_torch_talking_heads.py`` holds them), its forward and backward times in
 turns (versions in order, then in reverse, the mean of the two), and the
 cycles a block spends in each phase, averaged over the launch's blocks,
 beside the card's name and power limit.
