@@ -60,13 +60,14 @@ class LayerNorm(nn.LayerNorm):
 
 def _ln_cls(dim: int) -> type[nn.Module]:
     """LayerNorm class of the shared blocks (``FeedForward.norm``,
-    ``Attention.norm``, ``Transformer.norm``) at feature width ``dim``:
-    ``FusedLayerNorm``, on the fused LayerNorm kernels (compute-dtype x in
-    and y out, float32 moments), where ``dim`` is inside their gate
-    (``fused_ln_supported``: a multiple of 128, at most 8192), else
-    ``LayerNorm``. The two have the same parameters. Outside the gate
-    ``FusedLayerNorm`` would run an eager float32 chain slower than
-    ``F.layer_norm``, so the rule is decided here, once a module is built."""
+    ``Attention.norm``, ``Transformer.norm``) and of Swin's norms at feature
+    width ``dim``: ``FusedLayerNorm``, on the fused LayerNorm kernels
+    (compute-dtype x in and y out, float32 moments), where ``dim`` is inside
+    their gate (``fused_ln_supported``: a multiple of 32, at most 8192;
+    JAX's is a multiple of 128), else ``LayerNorm``. The two have the same
+    parameters. Outside the gate ``FusedLayerNorm`` would run an eager
+    float32 chain slower than ``F.layer_norm``, so the rule is decided here,
+    once a module is built."""
     return FusedLayerNorm if fused_ln_supported(dim) else LayerNorm
 
 

@@ -6,7 +6,9 @@ Structure: patchify (a stride = kernel convolution, ref swin.py:632-643) →
 4 stages of SwinTransformerBlocks with alternating window shift,
 PatchMerging between stages (v1: norm before reduction, v2: after),
 linearly scheduled stochastic depth, final LayerNorm → global average
-pool → head. Input is NHWC, as in the JAX package.
+pool → head. Input is NHWC, as in the JAX package. Every LayerNorm is the
+shared blocks' class by width (``layers._ln_cls``): Swin-T's 29 norms, at
+96 to 1536, run on the fused LayerNorm kernels.
 
 Window attention: pad to window multiples, cyclic shift, window partition,
 qkv, relative-position bias (v1: learned table; v2: log-CPB MLP ×
@@ -41,7 +43,7 @@ from ..ops.windows import (
     window_reverse,
 )
 from ..utils import normal_init, resolve_device, trunc_normal_init, xavier_uniform_init
-from .layers import Dense, DropPath, LayerNorm, PatchConv
+from .layers import Dense, DropPath, PatchConv, _ln_cls
 
 __all__ = [
     "SwinTransformer",
@@ -232,8 +234,8 @@ class SwinTransformerBlock(nn.Module):
         self.attn = ShiftedWindowAttention(
             dim, window_size, shift_size, num_heads, attention_dropout=attention_dropout,
             dropout=dropout, robust=robust, version=version, dtype=dtype, device=device)
-        self.norm1 = LayerNorm(dim, eps=1e-5, dtype=dtype, device=device)
-        self.norm2 = LayerNorm(dim, eps=1e-5, dtype=dtype, device=device)
+        self.norm1 = _ln_cls(dim)(dim, eps=1e-5, dtype=dtype, device=device)
+        self.norm2 = _ln_cls(dim)(dim, eps=1e-5, dtype=dtype, device=device)
         self.mlp = _MLP(dim, int(dim * mlp_ratio), dropout, dtype=dtype, device=device)
         self.drop_path = DropPath(stochastic_depth_prob)
 
@@ -253,8 +255,8 @@ class PatchMerging(nn.Module):
                  device=None):
         super().__init__()
         self.version = version
-        self.norm = LayerNorm(4 * dim if version == 1 else 2 * dim, eps=1e-5, dtype=dtype,
-                              device=device)
+        width = 4 * dim if version == 1 else 2 * dim
+        self.norm = _ln_cls(width)(width, eps=1e-5, dtype=dtype, device=device)
         self.reduction = Dense(4 * dim, 2 * dim, bias=False, dtype=dtype, device=device,
                                kernel_init=trunc_normal_init(0.02))
 
@@ -284,7 +286,7 @@ class SwinTransformer(nn.Module):
         trunc = trunc_normal_init(0.02)
         self.patch_embed = PatchConv(channels, embed_dim, tuple(patch_size), dtype=dtype,
                                      device=device, kernel_init=trunc)
-        self.patch_norm = LayerNorm(embed_dim, eps=1e-5, dtype=dtype, device=device)
+        self.patch_norm = _ln_cls(embed_dim)(embed_dim, eps=1e-5, dtype=dtype, device=device)
         total_blocks = sum(self.depths)
         block_id = 0
         for i_stage, depth in enumerate(self.depths):
@@ -302,7 +304,7 @@ class SwinTransformer(nn.Module):
                 self.add_module(f"downsample{i_stage}",
                                 PatchMerging(dim, version=version, dtype=dtype, device=device))
         num_features = embed_dim * 2 ** (len(self.depths) - 1)
-        self.norm = LayerNorm(num_features, eps=1e-5, dtype=dtype, device=device)
+        self.norm = _ln_cls(num_features)(num_features, eps=1e-5, dtype=dtype, device=device)
         self.head = Dense(num_features, num_classes, dtype=dtype, device=device,
                           kernel_init=trunc)
 

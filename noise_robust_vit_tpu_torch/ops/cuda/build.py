@@ -266,10 +266,12 @@ def check_operand(kernel: str, name: str, t: torch.Tensor, like: torch.Tensor,
 
 
 def by_device(cuda_fn, plain_fn, x: torch.Tensor, *args):
-    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor or a
+    meta one (shapes alone, as when a model's FLOPs are counted on the meta
+    device)."""
     if x.is_cuda:
         return cuda_fn(x, *args)
-    if x.device.type != "cpu":
+    if x.device.type not in ("cpu", "meta"):
         raise ValueError(f"no kernel path for device {x.device}")
     return plain_fn(x, *args)
 

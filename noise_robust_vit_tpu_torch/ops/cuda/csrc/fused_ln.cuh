@@ -1,12 +1,14 @@
 // Pieces shared by the fused LayerNorm kernels (fused_ln_{fwd,bwd}.cu):
-// the gate, the backward's row blocking, four-element loads and stores, and
-// the warp and block sums. Everything sits in nrv::fln, apart from the
-// other kernels' helpers of the same names.
+// the gate, the paths by width, the backward's row blocking, four-element
+// loads and stores, and the lane-group and block sums. Everything sits in
+// nrv::fln, apart from the other kernels' helpers of the same names.
 //
-// The gate is the TPU kernel's (noise_robust_vit_tpu/ops/pallas/fused_ln.py
-// ::fused_ln_supported): D a multiple of 128, at most 8192. Python mirrors
-// it in ops/cuda/fused_ln.py (fused_ln_supported); change one, change the
-// other. Python reads the row blocking from nrv_fused_ln_bwd_blocks.
+// The gate: D a multiple of 32, from 32 to 8192. Python mirrors it in
+// ops/cuda/fused_ln.py (fused_ln_supported); change one, change the other.
+// It contains the TPU kernel's (noise_robust_vit_tpu/ops/pallas/fused_ln.py
+// ::fused_ln_supported: D a multiple of 128, the TPU's lane width); on this
+// card a row splits into runs of four over 8 lanes, so 32 is the step.
+// Python reads the row blocking from nrv_fused_ln_bwd_blocks.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,17 +20,29 @@ namespace fln {
 
 constexpr int kThreads = 256;  // 8 warps a block
 constexpr int kWarps = kThreads / 32;
-constexpr int kLane = 128;     // D % kLane == 0: four elements a lane, in chunks
+constexpr int kStep = 32;      // D % kStep == 0: runs of four over 8 lanes
 constexpr int kMaxD = 8192;
-constexpr int kWarpMaxD = 1024;          // one warp a row up to here
-constexpr int kWarpRowsPerBlock = 128;   // backward, D <= 1024: 16 rows a warp
-constexpr int kBlockRowsPerBlock = 32;   // backward, D > 1024: one row at a time
+constexpr int kBlockRowsPerBlock = 32;  // backward, block path: one row at a time
 
-inline bool supported(int d) { return d >= kLane && d % kLane == 0 && d <= kMaxD; }
+inline bool supported(int d) { return d >= kStep && d % kStep == 0 && d <= kMaxD; }
 
-// Rows a backward block walks, and so the rows of the dg/db partials.
+// Lanes that hold a row inside the gate: 32, a warp a row (D a multiple of
+// 128 up to 1024); 8, four rows a warp (the other widths up to 256, D / 32
+// runs of four a lane: 1, 2, 3, 5, 6 or 7); 0, a block a row (the rest).
+inline int row_lanes(int d) {
+  if (d % 128 == 0 && d <= 1024) return 32;
+  return d <= 256 ? 8 : 0;
+}
+
+// Rows a lane group of the backward walks: 16 on the warp path, 8 on the
+// 8-lane path (fused_ln_bwd.cu says why).
+__host__ __device__ constexpr int group_rows(int lanes) { return lanes == 32 ? 16 : 8; }
+
+// Rows a backward block walks, and so the rows of the dg/db partials: 128
+// on the warp path, 256 on the 8-lane path, 32 on the block path.
 inline int bwd_rows_per_block(int d) {
-  return d <= kWarpMaxD ? kWarpRowsPerBlock : kBlockRowsPerBlock;
+  const int lanes = row_lanes(d);
+  return lanes ? group_rows(lanes) * (kThreads / lanes) : kBlockRowsPerBlock;
 }
 inline int bwd_blocks(int rows, int d) {
   const int rpb = bwd_rows_per_block(d);
@@ -60,11 +74,16 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 
 __device__ __forceinline__ float sum4(float4 v) { return ((v.x + v.y) + v.z) + v.w; }
 
-// Butterfly sum over the warp: every lane ends with the same bits (each
-// step adds the same two values on both lanes, and addition commutes).
-__device__ __forceinline__ float warp_sum(float v) {
+// Butterfly sum over G aligned lanes (G = 32: the warp): every lane of the
+// group ends with the same bits (each step adds the same two values on both
+// lanes, and addition commutes). The mask names the group alone, so groups
+// of a warp whose rows ran out need not be present.
+template <int G>
+__device__ __forceinline__ float lanes_sum(float v) {
+  const unsigned mask =
+      G == 32 ? 0xffffffffu : ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
   return v;
 }
 
@@ -72,7 +91,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 // them in warp order. `red` holds kWarps floats; ends with a barrier, so
 // the next call may reuse it.
 __device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
+  v = lanes_sum<32>(v);
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
   __syncthreads();
   float s = 0.f;

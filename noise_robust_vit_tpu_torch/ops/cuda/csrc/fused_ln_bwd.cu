@@ -15,62 +15,79 @@
 // 0.069 ms at 3.35 TB/s; the partials add 2 × 4 bytes × D a block (2.4 MB
 // there, 1% more). The design reads x and dy once and writes dx once.
 //
-// Design. The forward's layout. D <= 1024: one warp a row, a lane's
-// D/32 elements in registers, the four row means from butterfly shuffles;
-// a block of 8 warps walks 128 consecutive rows (a warp every 8th), each
-// lane adding dy·xhat and dy into per-column registers. D > 1024: one block
-// a row at a time over 32 consecutive rows, the rows of x and dy held in
-// shared memory as float32, each thread on its own runs of four (and its
-// own columns of the dg/db accumulators, also in shared memory). Each block
-// writes its float32 partials [blocks, D]: the warps' registers added in
-// warp order through shared memory. The second kernel adds the partials
-// over blocks in a fixed order (32 columns × 8 strided groups a block, the
-// groups added in order). No atomics: two runs give the same bits.
+// Design. The forward's layout. A warp or 8 lanes a row (fused_ln.cuh
+// row_lanes): a lane's D/G elements in registers, the four row means from
+// butterfly shuffles over the row's lanes; a block of 256 threads walks 128
+// consecutive rows at G = 32 (16 a warp, a warp every 8th) or 256 at G = 8
+// (8 a group, a group every 32nd), each lane adding dy·xhat and dy into
+// per-column registers; the four groups of a warp then add their columns
+// by shuffles in a fixed order. At G = 8 the groups walk 8 rows, not 16:
+// their 98-195 registers a thread leave 1-2 blocks an SM, and 512-row
+// blocks left a last, part-filled wave (on an H100 at [100352, 192] bf16
+// 0.0632 against 0.0566 ms). Block path: one block a row at a time over 32
+// consecutive rows, the rows of x and dy held in shared memory as float32,
+// each thread on its own runs of four (and its own columns of the dg/db
+// accumulators, also in shared memory). Each block writes its float32
+// partials [blocks, D]: the warps' registers added in warp order through
+// shared memory. The second kernel adds the partials over blocks in a
+// fixed order (32 columns × NG strided groups a block, the groups added in
+// order; NG = 8, or 32 after the 8-lane path, whose few columns leave few
+// blocks for many partials). No atomics: two runs give the same bits.
 #include "fused_ln.cuh"
 
 namespace nrv {
 namespace fln {
 
-// NC = D / 128 runs of four a lane. Static shared memory: the warps'
-// per-column partials, kWarps × D floats (32 KB at D = 1024).
-template <typename T, int NC>
+// v plus lane (lane ^ o)'s v, each component; the whole warp takes part.
+__device__ __forceinline__ float4 add_xor4(float4 v, int o) {
+  return make_float4(v.x + __shfl_xor_sync(0xffffffffu, v.x, o),
+                     v.y + __shfl_xor_sync(0xffffffffu, v.y, o),
+                     v.z + __shfl_xor_sync(0xffffffffu, v.z, o),
+                     v.w + __shfl_xor_sync(0xffffffffu, v.w, o));
+}
+
+// G lanes a row, NC = D / (4G) runs of four a lane. Static shared memory:
+// the warps' per-column partials, kWarps × D floats (32 KB at D = 1024).
+template <typename T, int G, int NC>
 __global__ void __launch_bounds__(kThreads)
-fused_ln_bwd_warp_kernel(const T* __restrict__ x, const float* __restrict__ g,
+fused_ln_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ g,
                          const T* __restrict__ dy, T* __restrict__ dx,
                          float* __restrict__ dg_part, float* __restrict__ db_part, int R,
                          float eps) {
-  constexpr int D = NC * kLane;
+  constexpr int D = 4 * G * NC;
+  constexpr int kGroups = kThreads / G;        // rows a block holds at once
+  constexpr int kRows = group_rows(G) * kGroups;  // rows a block walks
   __shared__ float4 stage[kWarps * D / 4];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x % G, warp = threadIdx.x >> 5, grp = threadIdx.x / G;
   float4 gv[NC], adg[NC], adb[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    gv[c] = load4(g + 4 * (32 * c + lane));
+    gv[c] = load4(g + 4 * (G * c + lane));
     adg[c] = adb[c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  const int row0 = blockIdx.x * kWarpRowsPerBlock;
-  for (int i = warp; i < kWarpRowsPerBlock; i += kWarps) {
+  const int row0 = blockIdx.x * kRows;
+  for (int i = grp; i < kRows; i += kGroups) {
     const int row = row0 + i;
-    if (row >= R) break;  // the whole warp
+    if (row >= R) break;  // the row's lanes together
     const T* xr = x + (size_t)row * D;
     const T* dyr = dy + (size_t)row * D;
     float4 v[NC], w[NC];
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      v[c] = load4(xr + 4 * (32 * c + lane));
-      w[c] = load4(dyr + 4 * (32 * c + lane));
+      v[c] = load4(xr + 4 * (G * c + lane));
+      w[c] = load4(dyr + 4 * (G * c + lane));
     }
     float s = 0.f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) s += sum4(v[c]);
-    const float mu = warp_sum(s) / (float)D;
+    const float mu = lanes_sum<G>(s) / (float)D;
     float q = 0.f;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       v[c] = make_float4(v[c].x - mu, v[c].y - mu, v[c].z - mu, v[c].w - mu);
       q += ((v[c].x * v[c].x + v[c].y * v[c].y) + v[c].z * v[c].z) + v[c].w * v[c].w;
     }
-    const float rstd = rsqrtf(warp_sum(q) / (float)D + eps);
+    const float rstd = rsqrtf(lanes_sum<G>(q) / (float)D + eps);
     // v becomes xhat; m1 = Σ dxhat, m2 = Σ dxhat·xhat
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
@@ -81,14 +98,14 @@ fused_ln_bwd_warp_kernel(const T* __restrict__ x, const float* __restrict__ g,
       m1 += sum4(d);
       m2 += ((d.x * v[c].x + d.y * v[c].y) + d.z * v[c].z) + d.w * v[c].w;
     }
-    m1 = warp_sum(m1) / (float)D;
-    m2 = warp_sum(m2) / (float)D;
+    m1 = lanes_sum<G>(m1) / (float)D;
+    m2 = lanes_sum<G>(m2) / (float)D;
     T* dxr = dx + (size_t)row * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const float4 d = make_float4(w[c].x * gv[c].x, w[c].y * gv[c].y, w[c].z * gv[c].z,
                                    w[c].w * gv[c].w);
-      store4(dxr + 4 * (32 * c + lane),
+      store4(dxr + 4 * (G * c + lane),
              make_float4(rstd * (d.x - m1 - v[c].x * m2), rstd * (d.y - m1 - v[c].y * m2),
                          rstd * (d.z - m1 - v[c].z * m2), rstd * (d.w - m1 - v[c].w * m2)));
       adg[c].x += w[c].x * v[c].x;
@@ -101,10 +118,23 @@ fused_ln_bwd_warp_kernel(const T* __restrict__ x, const float* __restrict__ g,
       adb[c].w += w[c].w;
     }
   }
+  // G < 32: the warp's groups hold the same columns; butterfly adds over
+  // them leave every group with the warp's sums, in a fixed order
+#pragma unroll
+  for (int o = G; o < 32; o <<= 1) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      adg[c] = add_xor4(adg[c], o);
+      adb[c] = add_xor4(adb[c], o);
+    }
+  }
   // the block's partials: the warps' columns added in warp order, dg then db
   for (int pass = 0; pass < 2; ++pass) {
+    if ((threadIdx.x & 31) < G) {
 #pragma unroll
-    for (int c = 0; c < NC; ++c) stage[warp * (D / 4) + 32 * c + lane] = pass ? adb[c] : adg[c];
+      for (int c = 0; c < NC; ++c)
+        stage[warp * (D / 4) + G * c + lane] = pass ? adb[c] : adg[c];
+    }
     __syncthreads();
     float* out = (pass ? db_part : dg_part) + (size_t)blockIdx.x * D;
     for (int q = threadIdx.x; q < D / 4; q += kThreads) {
@@ -196,18 +226,19 @@ fused_ln_bwd_block_kernel(const T* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-// dg[j] = Σ_b dg_part[b, j], db likewise. A block of 32 columns × 8 groups;
-// group y adds blocks y, y + 8, … in order, then the 8 group sums are added
-// in group order.
-__global__ void __launch_bounds__(kThreads)
+// dg[j] = Σ_b dg_part[b, j], db likewise. A block of 32 columns × NG
+// groups; group y adds blocks y, y + NG, … in order, then the NG group sums
+// are added in group order.
+template <int NG>
+__global__ void __launch_bounds__(32 * NG)
 fused_ln_partials_sum_kernel(const float* __restrict__ dg_part,
                              const float* __restrict__ db_part, float* __restrict__ dg,
                              float* __restrict__ db, int blocks, int D) {
-  __shared__ float sg[kWarps][32], sb[kWarps][32];
+  __shared__ float sg[NG][32], sb[NG][32];
   const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
-  const int j = blockIdx.x * 32 + lane;  // D % 128 == 0: always < D
+  const int j = blockIdx.x * 32 + lane;  // D % 32 == 0: always < D
   float a = 0.f, b = 0.f;
-  for (int k = grp; k < blocks; k += kWarps) {
+  for (int k = grp; k < blocks; k += NG) {
     a += dg_part[(size_t)k * D + j];
     b += db_part[(size_t)k * D + j];
   }
@@ -215,7 +246,7 @@ fused_ln_partials_sum_kernel(const float* __restrict__ dg_part,
   sb[grp][lane] = b;
   __syncthreads();
   if (grp == 0) {
-    for (int y = 1; y < kWarps; ++y) {
+    for (int y = 1; y < NG; ++y) {
       a += sg[y][lane];
       b += sb[y][lane];
     }
@@ -224,28 +255,52 @@ fused_ln_partials_sum_kernel(const float* __restrict__ dg_part,
   }
 }
 
-template <typename T, int NC>
-int launch_warp(const void* x, const void* g, const void* dy, void* dx, float* dg_part,
-                float* db_part, int R, float eps, int blocks, cudaStream_t stream) {
-  fused_ln_bwd_warp_kernel<T, NC><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(g), static_cast<const T*>(dy),
-      static_cast<T*>(dx), dg_part, db_part, R, eps);
+// The row kernels' arguments, for the dispatch by path.
+struct BwdArgs {
+  const void *x, *g, *dy;
+  void* dx;
+  float *dg_part, *db_part;
+  int R;
+  float eps;
+  int blocks;
+  cudaStream_t stream;
+};
+
+template <typename T, int G, int NC>
+int launch_group(const BwdArgs& a) {
+  fused_ln_bwd_rows_kernel<T, G, NC><<<a.blocks, kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.x), static_cast<const float*>(a.g), static_cast<const T*>(a.dy),
+      static_cast<T*>(a.dx), a.dg_part, a.db_part, a.R, a.eps);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_rows(const void* x, const void* g, const void* dy, void* dx, float* dg_part,
                 float* db_part, int R, int D, float eps, int blocks, cudaStream_t stream) {
-  switch (D / kLane) {
-    case 1: return launch_warp<T, 1>(x, g, dy, dx, dg_part, db_part, R, eps, blocks, stream);
-    case 2: return launch_warp<T, 2>(x, g, dy, dx, dg_part, db_part, R, eps, blocks, stream);
-    case 3: return launch_warp<T, 3>(x, g, dy, dx, dg_part, db_part, R, eps, blocks, stream);
-    case 4: return launch_warp<T, 4>(x, g, dy, dx, dg_part, db_part, R, eps, blocks, stream);
-    case 5: return launch_warp<T, 5>(x, g, dy, dx, dg_part, db_part, R, eps, blocks, stream);
-    case 6: return launch_warp<T, 6>(x, g, dy, dx, dg_part, db_part, R, eps, blocks, stream);
-    case 7: return launch_warp<T, 7>(x, g, dy, dx, dg_part, db_part, R, eps, blocks, stream);
-    case 8: return launch_warp<T, 8>(x, g, dy, dx, dg_part, db_part, R, eps, blocks, stream);
-    default: break;
+  const BwdArgs a{x, g, dy, dx, dg_part, db_part, R, eps, blocks, stream};
+  switch (row_lanes(D)) {  // the lane-group paths, by the runs a lane
+    case 32:
+      switch (D / 128) {
+        case 1: return launch_group<T, 32, 1>(a);
+        case 2: return launch_group<T, 32, 2>(a);
+        case 3: return launch_group<T, 32, 3>(a);
+        case 4: return launch_group<T, 32, 4>(a);
+        case 5: return launch_group<T, 32, 5>(a);
+        case 6: return launch_group<T, 32, 6>(a);
+        case 7: return launch_group<T, 32, 7>(a);
+        case 8: return launch_group<T, 32, 8>(a);
+      }
+      break;
+    case 8:
+      switch (D / 32) {  // 4 and 8 are the warp path's
+        case 1: return launch_group<T, 8, 1>(a);
+        case 2: return launch_group<T, 8, 2>(a);
+        case 3: return launch_group<T, 8, 3>(a);
+        case 5: return launch_group<T, 8, 5>(a);
+        case 6: return launch_group<T, 8, 6>(a);
+        case 7: return launch_group<T, 8, 7>(a);
+      }
+      break;
   }
   const size_t smem = 4 * sizeof(float) * (size_t)D;  // 128 KB at D = 8192
   cudaError_t err = cudaFuncSetAttribute(fused_ln_bwd_block_kernel<T>,
@@ -288,7 +343,11 @@ extern "C" int nrv_fused_ln_bwd(const void* x, const void* g, const void* dy, vo
   else
     return (int)cudaErrorInvalidValue;
   if (err != 0) return err;
-  fused_ln_partials_sum_kernel<<<D / 32, kThreads, 0, s>>>(
-      pg, pb, static_cast<float*>(dg), static_cast<float*>(db), blocks, D);
+  if (row_lanes(D) == 8)
+    fused_ln_partials_sum_kernel<32><<<D / 32, 32 * 32, 0, s>>>(
+        pg, pb, static_cast<float*>(dg), static_cast<float*>(db), blocks, D);
+  else
+    fused_ln_partials_sum_kernel<kWarps><<<D / 32, kThreads, 0, s>>>(
+        pg, pb, static_cast<float*>(dg), static_cast<float*>(db), blocks, D);
   return (int)cudaGetLastError();
 }

@@ -39,10 +39,12 @@ __all__ = [
     "launches",
 ]
 
-# Gate: JAX's (``fused_ln.py:38-40``), mirrored in csrc/fused_ln.cuh
-# (``supported``). A feature dim of 0 has no row to normalize and is left
-# out.
-_LANE = 128
+# Gate, mirrored in csrc/fused_ln.cuh (``supported``): D a multiple of 32,
+# the width of a row split into runs of four over 8 lanes, from 32 to 8192.
+# It contains JAX's (``fused_ln.py:38-40``: a multiple of 128, the TPU's lane
+# width), which has no reason on this card: the port takes Swin's and CvT's
+# widths 64, 96 and 192 as well.
+_STEP = 32
 MAX_D = 8192
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -51,8 +53,8 @@ launches = LaunchCounts()  # fwd: one a forward call; bwd: one a backward call (
 
 def fused_ln_supported(d: int) -> bool:
     """Shape gate of the kernels, decided before any call: D a multiple of
-    128, at most 8192."""
-    return 0 < d <= MAX_D and d % _LANE == 0
+    32, at most 8192."""
+    return 0 < d <= MAX_D and d % _STEP == 0
 
 
 # --------------------------------------------------------------------------
@@ -99,7 +101,7 @@ def _check(x, scale, others):
         raise TypeError(f"fused LayerNorm kernel: dtype {x.dtype} not in {list(_DTYPE_CODES)}")
     if x.ndim != 2 or not fused_ln_supported(x.shape[1]):
         raise ValueError(f"fused LayerNorm kernel: rows {tuple(x.shape)} are outside the gate "
-                         f"(D a multiple of {_LANE}, at most {MAX_D})")
+                         f"(D a multiple of {_STEP}, at most {MAX_D})")
     check_operand("fused LayerNorm", "x", x, x)
     d = x.shape[1]
     check_operand("fused LayerNorm", "scale", scale, x, torch.float32, (d,))

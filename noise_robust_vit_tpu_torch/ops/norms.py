@@ -16,15 +16,19 @@ class FusedLayerNorm(nn.Module):
     """LayerNorm over the last axis on the fused kernels
     (``ops/cuda/fused_ln.py``), with the port's ``LayerNorm`` parameters
     (``weight`` and ``bias``, flax's ``scale`` and ``bias``), so weights carry
-    across unchanged. The shared blocks take it at a feature width inside
-    the gate (``models/layers.py::_ln_cls``).
+    across unchanged. The shared blocks and Swin take it at a feature width
+    inside the gate (``models/layers.py::_ln_cls``: a multiple of 32 up to
+    8192, where JAX's gate is a multiple of 128).
 
     As JAX's ``FusedLayerNorm``: the compute dtype is ``dtype or x.dtype``;
     a feature dim inside ``fused_ln_supported`` casts x to it *before* the
     kernels (CUDA tensors) or their plain versions (CPU tensors); any other
     normalizes the uncast x with the same two-pass float32 math and casts
     the result. The gate is a shape decided before the call, not a
-    fallback: a kernel that fails raises."""
+    fallback: a kernel that fails raises. At a width that is a multiple of
+    32 but not of 128 (Swin-T's 96 and 192) the port casts before the
+    kernels where JAX's module, outside its gate, casts after: the two agree
+    where x already has the compute dtype, as in every bf16 block."""
 
     def __init__(self, dim: int, eps: float = 1e-5, dtype: torch.dtype | None = None,
                  device=None):

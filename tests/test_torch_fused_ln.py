@@ -23,7 +23,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from noise_robust_vit_tpu_torch import SimpleViT, convert_params
+from noise_robust_vit_tpu_torch import CvT, SimpleViT, SwinTransformer, convert_params
+from noise_robust_vit_tpu_torch.models import cvt as cvt_module
 from noise_robust_vit_tpu_torch.models.layers import (Attention, FeedForward, LayerNorm,
                                                       Transformer, _ln_cls)
 from noise_robust_vit_tpu_torch.ops.cuda import fused_ln as fl
@@ -105,11 +106,16 @@ def test_plain_backward_is_the_layer_norm_vjp():
 
 
 def test_gate_is_jax_gate(jx):
-    """``fused_ln_supported`` is JAX's ``fused_ln_supported`` at every
-    positive D up to and past 8192."""
+    """``fused_ln_supported`` contains JAX's ``fused_ln_supported`` (D a
+    multiple of 128, the TPU's lane width) at every positive D up to and
+    past 8192, and is exactly the multiples of 32 from 32 to 8192: a chosen
+    difference, since on the card a row splits into runs of four over 8
+    lanes."""
     pk = jx[2]
-    assert [d for d in range(1, 9000) if fl.fused_ln_supported(d)] == \
-        [d for d in range(1, 9000) if pk.fused_ln_supported(d)]
+    port = [d for d in range(1, 9000) if fl.fused_ln_supported(d)]
+    jax_gate = [d for d in range(1, 9000) if pk.fused_ln_supported(d)]
+    assert jax_gate and set(jax_gate) <= set(port)
+    assert port == list(range(32, 8193, 32))
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -128,15 +134,15 @@ def test_cpu_tensors_take_the_plain_version():
         fl.fused_ln_bwd_cuda(x, g, dy)
 
 
-@pytest.mark.parametrize("d", [128, 96], ids=["kernel_path", "outside_gate"])
+@pytest.mark.parametrize("d", [128, 120], ids=["kernel_path", "outside_gate"])
 def test_module_matches_jax_module_bf16_on_f32_input(jx, d):
     """``FusedLayerNorm(dtype=bf16)`` on a float32 x against JAX's module.
     D = 128 casts x to bf16 before normalizing (JAX's
     ``fused_layer_norm(x.astype(dtype), ...)``): the port's plain
     ``LayerNorm``, which normalizes the float32 x and casts afterwards,
     rounds a third of the entries differently, and the fused module agrees
-    with JAX to one bf16 ulp. D = 96 takes the gate's other branch, the
-    float32 two-pass math on the uncast x, cast after."""
+    with JAX to one bf16 ulp. D = 120, outside both gates, takes the
+    other branch, the float32 two-pass math on the uncast x, cast after."""
     jax, jnp, _ = jx
     from noise_robust_vit_tpu.ops.norms import FusedLayerNorm as JaxFusedLayerNorm
 
@@ -171,20 +177,23 @@ def test_switch_picks_the_class(monkeypatch):
             monkeypatch.delenv("NRV_FUSED_LN", raising=False)
         else:
             monkeypatch.setenv("NRV_FUSED_LN", value)
-        assert _ln_cls(128) is FusedLayerNorm and _ln_cls(96) is LayerNorm
+        assert _ln_cls(128) is FusedLayerNorm and _ln_cls(96) is FusedLayerNorm
+        assert _ln_cls(120) is LayerNorm
     model = SimpleViT(device="cpu", **SVIT)
     fused = [n for n, m in model.named_modules() if isinstance(m, FusedLayerNorm)]
     assert fused == ["transformer.layers_0_attn.norm", "transformer.layers_0_ff.norm"]
     assert type(model.head_norm) is LayerNorm  # left plain, as in JAX
 
 
-@pytest.mark.parametrize("d,fused", [(96, False), (120, False), (144, False), (8320, False),
-                                     (128, True), (768, True), (8192, True)])
+@pytest.mark.parametrize("d,fused", [(96, True), (64, True), (192, True), (120, False),
+                                     (144, False), (8320, False), (128, True), (768, True),
+                                     (8192, True)])
 def test_blocks_pick_the_class_by_width(d, fused):
     """``FeedForward``, ``Attention`` and ``Transformer`` build
     ``FusedLayerNorm`` where D is inside the kernels' gate (a multiple of
-    128 up to 8192), else the plain ``LayerNorm`` (MobileViT-XS's 96, 120
-    and 144; 8320 past the largest)."""
+    32 up to 8192: MobileViT-XS's and Swin-T's 96, CvT-13's 64 and 192),
+    else the plain ``LayerNorm`` (MobileViT-XS's 120 and 144; 8320 past the
+    largest)."""
     want = FusedLayerNorm if fused else LayerNorm
     assert fl.fused_ln_supported(d) == fused
     assert _ln_cls(d) is want
@@ -205,6 +214,56 @@ def test_simple_vit_at_768_fuses_its_block_norms():
     assert by_class == {"transformer.layers_0_attn.norm": FusedLayerNorm,
                         "transformer.layers_0_ff.norm": FusedLayerNorm,
                         "head_norm": LayerNorm}
+
+
+@pytest.mark.parametrize("name,image,widths", [
+    ("swin_t", 32, {96: 5, 192: 4, 384: 13, 768: 6, 1536: 1}),
+    ("cvt_13", 64, {64: 3, 192: 5, 384: 21})])
+def test_swin_t_and_cvt_13_norms_take_the_fused_kernels(monkeypatch, name, image, widths):
+    """Every LayerNorm of Swin-T (``FusedLayerNorm``: the patch norm, two a
+    block, the three merges at 4·C and the last) and every channel norm of
+    CvT-13 (``_ChannelLN``, which calls the fused function) runs
+    ``FusedLayerNormFn``: 29 calls a forward, by width."""
+    from noise_robust_vit_tpu_torch import create_model
+
+    model = create_model(name, num_classes=10, image_size=224, device="cpu")
+    got = []
+    real = fl.FusedLayerNormFn.apply
+    monkeypatch.setattr(fl.FusedLayerNormFn, "apply",
+                        lambda x, *a: got.append(x.shape[-1]) or real(x, *a))
+    with torch.no_grad():
+        model(torch.zeros(1, image, image, 3))
+    kinds = [type(m).__name__ for m in model.modules()
+             if isinstance(m, (FusedLayerNorm, LayerNorm, cvt_module._ChannelLN))]
+    assert len(got) == len(kinds) == 29
+    assert set(kinds) == {"FusedLayerNorm" if name == "swin_t" else "_ChannelLN"}
+    assert {d: got.count(d) for d in widths} == widths and len(got) == sum(widths.values())
+
+
+@pytest.mark.parametrize("d", [64, 192, 384])
+def test_cvt_channel_norm_bf16_is_at_least_as_close_as_jax(jx, d):
+    """In bf16 the port's CvT channel norm (the fused math: float32
+    moments, y rounded once) is at least as close to a float64 LayerNorm
+    of the same bf16 inputs as JAX's ``_ChannelLN``, which computes in the
+    input's dtype: a chosen difference from JAX, by the largest and the
+    mean error."""
+    jax, jnp, _ = jx
+    from noise_robust_vit_tpu.models.cvt import _ChannelLN as JaxChannelLN
+
+    x, g, b, _ = _inputs(d, (2, 6, 6, d))
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    mod = cvt_module._ChannelLN(d, device="cpu")
+    mod.load_state_dict({"g": torch.from_numpy(g), "b": torch.from_numpy(b)})
+    port = mod(xb).detach().double()
+    want = F.layer_norm(xb.double(), (d,), torch.from_numpy(g).double(),
+                        torch.from_numpy(b).double(), 1e-5)
+    jmod = JaxChannelLN(dim=d)
+    j = jmod.apply({"params": {"g": jnp.asarray(g), "b": jnp.asarray(b)}},
+                   jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16))
+    assert j.dtype == jnp.bfloat16 and port.dtype == torch.float64
+    jerr = (torch.from_numpy(np.array(j.astype(jnp.float32))).double() - want).abs()
+    perr = (port - want).abs()
+    assert perr.max() <= jerr.max() and perr.mean() <= jerr.mean()
 
 
 def _svit_step(params, x, y, fused):
@@ -303,8 +362,11 @@ def assert_kernel_matches(got, want):
         torch.testing.assert_close(a, b, atol=1e-5 * b.abs().max().item(), rtol=1e-4, msg=name)
 
 
+# the warp path (D a multiple of 128 up to 1024), the 8-lane path (the other
+# widths up to 256: odd row counts and one row), the block path (the rest)
 CARD_CASES = [(50176, 768), (500, 128), (1, 768), (500, 1024), (500, 1280), (63, 8192),
-              (1, 8192), (300, 384)]
+              (1, 8192), (300, 384), (333, 32), (1, 32), (1001, 64), (1, 64), (4099, 96),
+              (1, 96), (517, 160), (1, 160), (2047, 192), (1, 192), (77, 320), (45, 1056)]
 
 
 @pytest.mark.gpu
@@ -315,7 +377,7 @@ def test_kernel_matches_plain(cuda, rows, d, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,d", [(50176, 768), (500, 1280)])
+@pytest.mark.parametrize("rows,d", [(50176, 768), (500, 1280), (4099, 96)])
 def test_kernel_repeats_bit_for_bit(cuda, rows, d):
     """No atomics: the dscale/dbias partials are summed in a fixed order,
     so two runs give the same bits."""
@@ -327,15 +389,17 @@ def test_kernel_repeats_bit_for_bit(cuda, rows, d):
 
 @pytest.mark.gpu
 def test_kernel_refuses_outside_the_gate(cuda):
-    x, g, b, dy = _card(cuda, 12, 8, 96, torch.float32)
-    with pytest.raises(ValueError, match="outside the gate"):
-        fl.fused_ln_fwd_cuda(x, g, b)
-    with pytest.raises(ValueError, match="outside the gate"):
-        fl.fused_ln_bwd_cuda(x, g, dy)
+    """120 is no multiple of 32; 8224 is one, past 8192."""
+    for d in (120, 8224):
+        x, g, b, dy = _card(cuda, 12, 8, d, torch.float32)
+        with pytest.raises(ValueError, match="outside the gate"):
+            fl.fused_ln_fwd_cuda(x, g, b)
+        with pytest.raises(ValueError, match="outside the gate"):
+            fl.fused_ln_bwd_cuda(x, g, dy)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,launched", [(128, 1), (96, 0)])
+@pytest.mark.parametrize("d,launched", [(128, 1), (96, 1), (64, 1), (120, 0)])
 def test_module_on_card_launches_inside_the_gate(cuda, d, launched):
     """``FusedLayerNorm`` on CUDA tensors: one forward and one backward
     launch inside the gate, none outside it; the CPU path agrees."""
@@ -373,3 +437,52 @@ def test_simple_vit_step_launches_the_kernels(cuda):
     torch.cuda.synchronize()
     assert (fl.launches.fwd, fl.launches.bwd) == (4, 4)
     assert torch.isfinite(loss)
+
+
+# a depth-reduced Swin-T (one block a stage: 13 norms at 96 to 1536) and
+# CvT-13 (one block a stage: 9 channel norms at 64, 192 and 384), vanilla,
+# float32, at 112 and 64 px
+NORM_MODELS = {
+    "swin_t_depth_1": (SwinTransformer, dict(patch_size=(4, 4), embed_dim=96, depths=(1, 1, 1, 1),
+                                             num_heads=(3, 6, 12, 24), window_size=(7, 7),
+                                             num_classes=10, stochastic_depth_prob=0.0),
+                       112, False, 13),
+    "cvt_13_depth_1": (CvT, dict(num_classes=10, s1_depth=1, s2_depth=1, s3_depth=1), 64, True, 9),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(NORM_MODELS))
+def test_model_step_runs_its_norms_on_the_kernels(cuda, name):
+    """One forward and backward of 4 images (CvT in train mode) on the card
+    and on the CPU from the same weights: one forward and one backward launch
+    a norm on the card, none on the CPU; logits within atol and rtol 1e-4,
+    every gradient within ``GRAD_TOL``'s rtol and its atol times the
+    tensor's largest magnitude."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cls, kwargs, image, train, norms = NORM_MODELS[name]
+    cpu = cls(device="cpu", **kwargs)
+    gen = torch.Generator().manual_seed(15)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    card = cls(device=cuda, **kwargs)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(4, image, image, 3, generator=gen)
+    y = torch.randint(0, 10, (4,), generator=gen)
+    outs = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        model.train(train)
+        fl.launches.reset()
+        logits = model(x.to(dev))
+        F.cross_entropy(logits, y.to(dev)).backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        outs.append((logits.detach().cpu(), {k: p.grad.cpu() for k, p in model.named_parameters()},
+                     (fl.launches.fwd, fl.launches.bwd)))
+    assert outs[0][2] == (0, 0) and outs[1][2] == (norms, norms)
+    torch.testing.assert_close(outs[1][0], outs[0][0], atol=1e-4, rtol=1e-4)
+    for k, g in outs[0][1].items():
+        torch.testing.assert_close(outs[1][1][k], g, rtol=GRAD_TOL["rtol"],
+                                   atol=GRAD_TOL["atol"] * g.abs().max().item(), msg=k)

@@ -13,8 +13,11 @@ kernels were ported), and no other site: every site of SimpleViT at head
 width 32, Swin, LeViT, CaiT and CvT keeps the op it had.
 
 The fused LayerNorm (``FusedLayerNormFn``) is spied on as well: it serves
-the shared blocks' norms of a SimpleViT at D 128 (inside its gate), and no
-site of the models whose block widths lie outside it. The
+every norm whose width is inside its gate (a multiple of 32): the shared
+blocks' norms of the SimpleViTs at D 64 and 128, the small Swins' norms at
+32 and 64 (not stage 0's at 16) and the small CvTs' stage-3 channel norms
+at 32 (not stages 1 and 2 at 16 and 24), and no norm of MobileViT's (16 and
+24). The
 torchvision-style VisionTransformer's sites take the packed kernels, both
 modes, on its 4-iteration schedule with no final row norm.
 """
@@ -41,24 +44,31 @@ from noise_robust_vit_tpu_torch.ops.cuda import talking_heads as th
 torch.set_num_threads(1)
 
 LEVIT_D, LEVIT_EMBED = 16, (32, 48, 64)
+S1 = (2, 4, 4, 32)  # the small Swins' stage-1 map, a fused LayerNorm's x
 # name → (class, keyword arguments, image size, the sites in call order);
 # the configs are those of tests/test_torch_{simple_vit,swin,levit,cait,cvt,
 # mobile_vit,vision_transformer,fused_ln}.py
 MODELS = {
     "simple_vit_d32": (SimpleViT, dict(image_size=32, patch_size=8, num_classes=10, dim=64,
                                        depth=2, heads=2, mlp_dim=128, dim_head=32), 32,
-                       [("packed", (2, 16, 192))] * 2),
+                       [("fused_ln", (2, 16, 64)), ("packed", (2, 16, 192)),
+                        ("fused_ln", (2, 16, 64))] * 2),
     "simple_vit_d16": (SimpleViT, dict(image_size=32, patch_size=8, num_classes=10, dim=64,
                                        depth=2, heads=2, mlp_dim=128, dim_head=16), 32,
-                       [("fused", (2, 2, 16, 16))] * 2),
+                       [("fused_ln", (2, 16, 64)), ("fused", (2, 2, 16, 16)),
+                        ("fused_ln", (2, 16, 64))] * 2),
     "swin_v1": (SwinTransformer, dict(patch_size=(4, 4), embed_dim=16, depths=(2, 2),
                                       num_heads=(2, 2), window_size=(4, 4), num_classes=5,
                                       stochastic_depth_prob=0.0, version=1), 32,
-                [("biased", (8, 2, 16, 8))] * 2 + [("biased", (2, 2, 16, 16))] * 2),
+                [("biased", (8, 2, 16, 8))] * 2 + [("fused_ln", (2, 4, 4, 64))]
+                + [("fused_ln", S1), ("biased", (2, 2, 16, 16)), ("fused_ln", S1)] * 2
+                + [("fused_ln", S1)]),
     "swin_v2": (SwinTransformer, dict(patch_size=(4, 4), embed_dim=16, depths=(2, 2),
                                       num_heads=(2, 2), window_size=(4, 4), num_classes=5,
                                       stochastic_depth_prob=0.0, version=2), 32,
-                [("biased", (8, 2, 16, 8))] * 2 + [("biased", (2, 2, 16, 16))] * 2),
+                [("biased", (8, 2, 16, 8))] * 2 + [("fused_ln", S1)]
+                + [("biased", (2, 2, 16, 16)), ("fused_ln", S1), ("fused_ln", S1)] * 2
+                + [("fused_ln", S1)]),
     "levit": (LeViT, dict(img_size=112, patch_size=16, num_classes=5, embed_dim=LEVIT_EMBED,
                           key_dim=(LEVIT_D,) * 3, depth=(1, 1, 1), num_heads=(2, 3, 4),
                           attn_ratio=(2, 2, 2), mlp_ratio=(2, 2, 2),
@@ -72,12 +82,14 @@ MODELS = {
              [("talking_heads", (2, 4, 16, 16))] * 2 + [("vector_logits", (2, 4, 1, 17))]),
     "cvt_32": (CvT, dict(num_classes=5, s1_emb_dim=16, s1_heads=1, s1_depth=1, s2_emb_dim=24,
                          s2_heads=1, s2_depth=1, s3_emb_dim=32, s3_heads=2, s3_depth=1), 32,
-               [("rect", (2, 1, 64, 16)), ("rect", (2, 1, 16, 4)),
-                ("vector_logits", (2, 2, 4, 1))]),
+               [("rect", (2, 1, 64, 16)), ("rect", (2, 1, 16, 4)), ("fused_ln", (2, 2, 2, 32)),
+                ("fused_ln", (2, 2, 2, 32)), ("vector_logits", (2, 2, 4, 1)),
+                ("fused_ln", (2, 2, 2, 32))]),
     "cvt_112": (CvT, dict(num_classes=5, s1_emb_dim=16, s1_heads=1, s1_depth=1, s2_emb_dim=24,
                           s2_heads=1, s2_depth=1, s3_emb_dim=32, s3_heads=2, s3_depth=1), 112,
                 [("streaming", (2, 1, 784, 64)), ("rect", (2, 1, 196, 49)),
-                 ("rect", (2, 2, 49, 16))]),
+                 ("fused_ln", (2, 7, 7, 32)), ("fused_ln", (2, 7, 7, 32)),
+                 ("rect", (2, 2, 49, 16)), ("fused_ln", (2, 7, 7, 32))]),
     "mobile_vit": (MobileViT, dict(num_classes=5, dims=(16, 24, 16),
                                    channels=(8, 8, 12, 16, 16, 24, 24, 24, 24, 32, 48),
                                    depths=(1, 1, 1)), 128,
@@ -224,9 +236,9 @@ CAIT = functools.partial(create_model, "cait")
 # shared-memory, plane, tile and recompute branches.
 SMALL = {
     "swin_v1": (SwinTransformer, _swin_small(1, 7), 56, False, None, False,
-                {"biased": 4, "biased_shared": 4}),
+                {"biased": 4, "biased_shared": 4, "fused_ln": 11}),
     "swin_v2": (SwinTransformer, _swin_small(2, 8), 64, False, None, False,
-                {"biased": 4, "biased_shared": 4}),
+                {"biased": 4, "biased_shared": 4, "fused_ln": 11}),
     "levit": (LeViT, LEVIT_SMALL, 112, True, 21, False,
               {"biased": 3, "biased_shared": 3, "rect": 2}),
     "cait_4_heads": (CAIT, dict(CAIT_SMALL, heads=4), 56, False, None, True,
@@ -234,7 +246,7 @@ SMALL = {
     "cait_16_heads": (CAIT, dict(CAIT_SMALL, heads=16), 56, False, None, True,
                       {"talking_heads": 2, "talking_heads_plane": 2}),
     "cvt": (CvT, CVT_SMALL, 112, True, 41, False,
-            {"streaming": 1, "streaming_tile": 1, "rect": 2}),
+            {"streaming": 1, "streaming_tile": 1, "rect": 2, "fused_ln": 3}),
     "mobile_vit": (MobileViT, MVIT_SMALL, 128, True, 51, False,
                    {"fused": 3, "fused_recompute": 3}),
     "simple_vit_fused_ln": (SimpleViT, dict(num_classes=10, image_size=64, patch_size=8,
@@ -293,20 +305,26 @@ def test_small_model_on_card_matches_cpu(cuda, name):
 
 # name → (image size, the robust step's launches each way, the vanilla
 # step's, the packed calls' (iterations, final row norm)): every robust
-# attention site on the branch the main path takes
+# attention site on the branch the main path takes, and every norm inside
+# the fused LayerNorm's gate on its kernels (SimpleViT-B/16's 24 block
+# norms, Swin-T's and CvT-13's 29, MobileViT-XS's four at 96), both modes
 FULL = {
     "simple_vit_b16": (224, {"packed": 12, "packed_resident": 12, "fused_ln": 24},
                        {"packed": 12, "packed_resident": 12, "fused_ln": 24}, (3, True)),
     "vit_b_16": (224, {"packed": 12, "packed_resident": 12},
                  {"packed": 12, "packed_resident": 12}, (4, False)),
-    "swin_t": (224, {"biased": 12, "biased_resident": 12}, {}, None),
-    "swin_v2_t": (224, {"biased": 12, "biased_resident": 12}, {}, None),
+    "swin_t": (224, {"biased": 12, "biased_resident": 12, "fused_ln": 29}, {"fused_ln": 29},
+               None),
+    "swin_v2_t": (224, {"biased": 12, "biased_resident": 12, "fused_ln": 29},
+                  {"fused_ln": 29}, None),
     "levit": (224, {"biased": 9, "biased_resident": 7, "biased_shared": 2, "rect": 2}, {}, None),
     "LeViT_256": (224, {"biased": 12, "biased_resident": 8, "biased_shared": 4, "rect": 2}, {},
                   None),
     "cait": (224, {"talking_heads": 6, "talking_heads_cluster": 6}, {}, None),
-    "cvt_13": (224, {"streaming": 3, "streaming_split": 3, "rect": 10}, {}, None),
-    "mobile_vit_xs": (256, {"fused": 9, "fused_resident": 9}, {}, None),
+    "cvt_13": (224, {"streaming": 3, "streaming_split": 3, "rect": 10, "fused_ln": 29},
+               {"fused_ln": 29}, None),
+    "mobile_vit_xs": (256, {"fused": 9, "fused_resident": 9, "fused_ln": 4}, {"fused_ln": 4},
+                      None),
 }
 
 

@@ -144,10 +144,23 @@ TABLE = [
           beats="streaming_tile cvt_13 stage 2 forced"),
     Entry("streaming_tile cvt_13 stage 1 forced", "streaming", "tile", CVT_S1),
     Entry("streaming_tile cvt_13 stage 2 forced", "streaming", "tile", CVT_S2),
-    # row 8: the fused LayerNorm, SimpleViT-B/16's block norms
+    # row 8: the fused LayerNorm, SimpleViT-B/16's block norms (warp path) and
+    # the 8-lane path at batch 128: Swin-T stage 0, CvT-13 stage 1, and
+    # [100352, 192], Swin-T stage 1 and CvT-13 stage 2 alike
     Entry("fused_ln simple_vit_b16", "fused_ln", None, (50176, 768), None,
           baseline="layer_norm"),
+    Entry("fused_ln swin_t stage 0", "fused_ln", None, (401408, 96), None,
+          baseline="layer_norm"),
+    Entry("fused_ln cvt_13 stage 1", "fused_ln", None, (401408, 64), None,
+          baseline="layer_norm"),
+    Entry("fused_ln swin_t stage 1", "fused_ln", None, (100352, 192), None,
+          baseline="layer_norm"),
 ]
+
+
+# the queue's hold in SM cycles: ~50 ms at the H100's 1.98 GHz, longer than
+# the host takes to queue an entry's calls
+HOLD_CYCLES = 100_000_000
 
 
 def card_line() -> str:
@@ -159,10 +172,15 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device ms of ``fn`` over ``iters`` calls, between CUDA events."""
+    """Mean device ms of ``fn`` over ``iters`` calls, between CUDA events.
+    The card is held on a ~50 ms sleep kernel while the host queues the
+    calls, so a kernel of a few µs reads its own time and not its
+    wrapper's host time."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
